@@ -30,18 +30,45 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 NATIVE_SRC = os.path.join(os.path.dirname(PKG_DIR), "native", "adacom_native.cpp")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-shared"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall"]
 
 
 class BuildError(RuntimeError):
     pass
 
 
+def _compile_link(cmd: List[str], sources: List[str], out: str) -> str:
+    """Compile each source to an object with its own compiler process, all
+    started together, then link them into the shared library `out`.
+    Returns the compilers' output; raises BuildError on a failure."""
+    objs = [f"{out}.{i}.o" for i in range(len(sources))]
+    procs = [subprocess.Popen(cmd + ["-c", "-o", o, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for o, src in zip(objs, sources)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for src, p, log in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise BuildError(f"compiling {src} failed:\n{log}")
+        link = subprocess.run(cmd + ["-shared", "-o", out] + objs,
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise BuildError(f"linking {out} failed:\n{link.stderr}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return "".join(logs) + link.stdout + link.stderr
+
+
 def build_shared(name: str, sources: List[str], cmd: List[str]) -> str:
-    """Compile `sources` with `cmd` (compiler + flags) into a shared library
-    under BUILD_DIR and return its path; reuses an existing build of the
-    same sources and flags. The compiler's output goes to ``<lib>.log``."""
+    """Compile `sources` with `cmd` (compiler + flags, without -shared) into
+    a shared library under BUILD_DIR and return its path; reuses an
+    existing build of the same sources and flags. Each source compiles in
+    its own process, in parallel. The compilers' output goes to
+    ``<lib>.log``."""
     h = hashlib.sha256(" ".join(cmd).encode())
     for src in sources:
         with open(src, "rb") as f:
@@ -54,12 +81,14 @@ def build_shared(name: str, sources: List[str], cmd: List[str]) -> str:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(out):
             tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.run(cmd + ["-o", tmp] + sources,
-                                  capture_output=True, text=True)
+            try:
+                text = _compile_link(cmd, sources, tmp)
+            except BuildError as e:
+                with open(out + ".log", "w") as log:
+                    log.write(str(e))
+                raise
             with open(out + ".log", "w") as log:
-                log.write(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise BuildError(f"building {name} failed:\n{proc.stderr}")
+                log.write(text)
             os.replace(tmp, out)
     return out
 
@@ -88,6 +117,11 @@ def kernels() -> ctypes.CDLL:
     lib.adacom_table_scan.restype = ci
     lib.adacom_table_scan_threads.argtypes = []
     lib.adacom_table_scan_threads.restype = ci
+    lib.adacom_multi_grouped_scan.argtypes = [vp] * 5 + [ci] * 5 + [vp, vp] \
+        + [ci] * 3 + [vp]
+    lib.adacom_multi_grouped_scan.restype = ci
+    lib.adacom_grouped_scan_threads.argtypes = []
+    lib.adacom_grouped_scan_threads.restype = ci
     return lib
 
 

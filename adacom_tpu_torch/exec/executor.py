@@ -9,11 +9,16 @@ executor, src/execution/physical_plan_generator.cpp). This slice carries:
   (numpy plus the native C++ filters over the segments' host copies):
   point lookups and every materialization;
 - filter, project, order, top-N and limit over materialized batches;
-- aggregates: an ungrouped sum/count/min/max over one packed 4-byte
-  integer column runs the fused table-scan kernel (ops/fused_scan.py) over
-  the device-resident packed segments; every other aggregate takes the
-  host hash aggregate over a host scan until the JAX package's grouped
-  Pallas tiers and generic device tier are ported (ROADMAP queue A).
+- aggregates over a scan route as the JAX package's do
+  (_aggregate_over_scan): an ungrouped sum/count/min/max over one packed
+  4-byte integer column runs the fused table scan (ops/fused_scan.py,
+  kernel B1); other ungrouped SUM/COUNT aggregates over polynomials of
+  packed columns run the multi grouped scan (ops/grouped_scan.py, B3);
+  grouped aggregates over a small dense domain run the grouped scan (B2)
+  or, failing that, B3. Non-dense domains, DISTINCT and holistic
+  aggregates take the host hash aggregate over a host scan, as in the
+  JAX package; so, for now, does everything the JAX package's generic
+  device path would take (ROADMAP queue A item 9).
 
 Plan nodes outside the slice raise ExecError("not yet ported: ...").
 """
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from adacom_tpu_torch import types as tt
-from adacom_tpu_torch.ops import fused_scan
+from adacom_tpu_torch.ops import bitpack, fused_scan, grouped_scan
 from adacom_tpu_torch.sql import bound as b
 from adacom_tpu_torch.exec.expr import ExprCompiler, CompiledExpr, compute_dtype_of
 
@@ -553,14 +558,74 @@ class Executor:
                 raise ExecError(f"aggregate {a.func}")
         return specs, finishers
 
+    def _group_domain(self, node: b.LogicalAggregate,
+                      get: Optional[b.LogicalGet]):
+        """Dense-domain info (mins, strides, sizes, domain) for the group
+        keys, or None when some key has no small dense domain."""
+        if get is not None:
+            # seal staged appends first: zonemap stats only cover segments
+            # (unflushed staging made the domain collapse to one group)
+            get.table.flush()
+        mins, sizes = [], []
+        for g in node.groups:
+            if isinstance(g, b.BColumn) and g.dictionary is not None:
+                mins.append(0)
+                sizes.append(max(1, len(g.dictionary)))
+                continue
+            if g.ty.integer and get is not None and isinstance(g, b.BColumn):
+                col = get.table.columns[get.column_ids[g.index]]
+                if not col.segments:
+                    mins.append(0)
+                    sizes.append(1)
+                    continue
+                lo = min(s.vmin for s in col.segments)
+                hi = max(s.vmax for s in col.segments)
+                mins.append(int(lo))
+                sizes.append(int(hi - lo + 1))
+                continue
+            if g.ty is tt.BOOLEAN:
+                mins.append(0)
+                sizes.append(2)
+                continue
+            return None
+        domain = 1
+        for s in sizes:
+            domain *= s
+        if domain > (1 << 22):
+            return None
+        strides = []
+        acc = 1
+        for s in reversed(sizes):
+            strides.append(acc)
+            acc *= s
+        strides.reverse()
+        return mins, strides, sizes, domain
+
     def _aggregate_over_scan(self, node, get: b.LogicalGet, lits) -> Mat:
-        """Ungrouped sum/count/min/max over one packed 4-byte integer column
-        runs the fused table scan; every other aggregate (grouped,
-        DISTINCT, holistic, other columns) takes the host aggregate over a
-        host scan until the grouped and generic device tiers are ported."""
+        """Route an aggregate over a scan as the JAX package does: the
+        fused device tiers first (ungrouped: B1, then B3; grouped over a
+        dense domain: B2, then B3), the host aggregate over a host scan for
+        everything they decline (non-dense domains, DISTINCT, holistic
+        aggregates, and what the generic device path would take)."""
         specs, finishers = self._agg_specs(node)
-        if not node.groups:
-            mat = self._try_pallas_scan_agg(node, get, lits, specs, finishers)
+        grouped = bool(node.groups)
+        dense = self._group_domain(node, get) if grouped else None
+        holistic = any(k == "hll" or k.startswith("q:")
+                       for k, *_x in specs)
+        if not holistic and not any(d for *_x, d in specs):
+            mat = None
+            if not grouped:
+                mat = self._try_pallas_scan_agg(node, get, lits, specs,
+                                                finishers)
+                if mat is None:
+                    mat = self._try_pallas_multi_agg(node, get, lits, specs,
+                                                     finishers, None)
+            elif dense is not None:
+                mat = self._try_pallas_grouped_agg(node, get, lits, specs,
+                                                   finishers, dense)
+                if mat is None:
+                    mat = self._try_pallas_multi_agg(node, get, lits, specs,
+                                                     finishers, dense)
             if mat is not None:
                 return mat
         mat = self._materialize_scan(get, lits)
@@ -652,10 +717,15 @@ class Executor:
                        tuple((e[4], e[5]) for e in entries))
                 stacked = cache.get(key)
                 if stacked is None:
-                    stacked = _stack_planes(entries, L_pad, cls_valid)
-                    if len(cache) > 8:
-                        cache.clear()
-                    cache[key] = stacked
+                    vstk = None
+                    if cls_valid:
+                        ones = torch.full((1, L_pad), -1, dtype=torch.int32,
+                                          device=entries[0][0].device)
+                        vstk = _stack_planes([ones if e[6] is None else e[6]
+                                              for e in entries], L_pad)
+                    stacked = (_stack_planes([e[0] for e in entries], L_pad),
+                               vstk)
+                    _cache_put(cache, key, stacked)
                 wstk, vstk = stacked
                 counts = np.asarray([e[1] for e in entries], np.int64)
                 mins = np.asarray([e[2] for e in entries], np.int64)
@@ -688,6 +758,393 @@ class Executor:
                                        dtype=acc)[()])
         out_vals = [f(prim) for f in finishers]
         cols, valids = _agg_finalize_row(node, out_vals)
+        dicts = getattr(node, "dicts", [None] * len(node.names))
+        return Mat(list(node.names), list(node.types), dicts, cols, valids)
+
+    # ------------------------------------------------------------------
+    # grouped fused-scan tiers (ops/grouped_scan.py, kernels B2 and B3):
+    # the reference's perfect-hash aggregate over a small dense group
+    # domain (perfect_aggregate_hashtable.cpp) fused with the succinct
+    # decode, one kernel launch per representation class
+    # ------------------------------------------------------------------
+    def _try_pallas_grouped_agg(self, node, get: b.LogicalGet, lits,
+                                specs, finishers, dense) -> Optional[Mat]:
+        """SELECT g, sum(v), count(*) GROUP BY g over one packed group
+        column and one packed 4-byte integer value column, with a small
+        integer domain and an optional value-range filter (kernel B2)."""
+        if not getattr(self.config, "pallas_scan_enabled", False):
+            return None
+        if len(node.groups) != 1:
+            return None
+        g = node.groups[0]
+        if not isinstance(g, b.BColumn):
+            return None
+        mins_d, _strides, _sizes, domain = dense
+        if domain > grouped_scan.MAX_GROUPS or domain < 1:
+            return None
+        gi = g.index
+        vi = None
+        for kind, arg, acc, distinct in specs:
+            if distinct or kind not in ("count", "count_arg", "sum"):
+                return None
+            if arg is not None:
+                if not isinstance(arg, b.BColumn):
+                    return None
+                if vi is None:
+                    vi = arg.index
+                elif arg.index != vi:
+                    return None
+        if vi is None or vi == gi:
+            return None
+        ty_v = get.types[vi]
+        if not ty_v.integer or np.dtype(compute_dtype_of(ty_v)).itemsize != 4:
+            return None
+        if not get.types[gi].integer:
+            return None
+        # filters fold into one value-column range
+        folded = _fold_ranges(get.filters, lits)
+        if folded is None or set(folded[0]) - {vi}:
+            return None
+        (lo, hi), empty = folded[0].get(vi, (None, None)), folded[1]
+
+        table = get.table
+        snap = self._pin_snapshot(table)
+        g_name, v_name = get.column_ids[gi], get.column_ids[vi]
+        candidates = self._zonemap_candidates(get, lits, snap)
+        pairs = []
+        for i in candidates:
+            if snap.delete_mask(i) is not None:
+                return None
+            sg = snap.segment(g_name, i)
+            sv = snap.segment(v_name, i)
+            for s in (sg, sv):
+                if s._validity_np is not None or not s.is_compacted() or \
+                        s.codec not in (None, "succinct"):
+                    return None
+            pairs.append((sg, sv))
+
+        sums = np.zeros(domain, np.int64)
+        cnts = np.zeros(domain, np.int64)
+        if not empty:
+            classes: Dict[tuple, list] = {}
+            for sg, sv in pairs:
+                gmeta, garr = sg.reader_arrays()
+                vmeta, varr = sv.reader_arrays()
+                for meta in (gmeta, vmeta):
+                    if meta[0] != "packed" or len(meta[1][0]) != 1:
+                        return None
+                (gw,), Lg, _ = gmeta[1]
+                (vw,), Lv, _ = vmeta[1]
+                if gw == 0 or vw == 0 or Lg != Lv:
+                    return None
+                classes.setdefault((gw, vw), []).append(
+                    (garr[0], varr[0], sv.count, sg._packed.min_factor,
+                     sv._packed.min_factor, Lg, sg.serial, sg.version,
+                     sv.serial, sv.version))
+            cache = getattr(table, "_pool_cache", None)
+            if cache is None:
+                cache = table._pool_cache = {}
+            for (gw, vw), entries in classes.items():
+                L_pad = max(e[5] for e in entries)
+                key = ("grouped", gw, vw, L_pad,
+                       tuple(e[6:] for e in entries))
+                stacked = cache.get(key)
+                if stacked is None:
+                    stacked = (_stack_planes([e[0] for e in entries], L_pad),
+                               _stack_planes([e[1] for e in entries], L_pad))
+                    _cache_put(cache, key, stacked)
+                gstk, vstk = stacked
+                counts = np.asarray([e[2] for e in entries], np.int64)
+                # kernel group ids are DOMAIN slots: code + (gmin - base)
+                gmins = np.asarray([e[3] - mins_d[0] for e in entries],
+                                   np.int64)
+                vmins = np.asarray([e[4] for e in entries], np.int64)
+                lanes = np.asarray([e[5] for e in entries], np.int64)
+                out = grouped_scan.grouped_scan_table(
+                    gstk, vstk, counts, gmins, vmins, domain, lo, hi,
+                    lanes=lanes)
+                sums += out[:, 0]
+                cnts += out[:, 1]
+
+        present = cnts > 0
+        gidx = np.nonzero(present)[0]
+        prim = []
+        for kind, arg, acc, _d in specs:
+            if kind in ("count", "count_arg"):
+                prim.append(cnts[gidx])
+            else:  # sum
+                prim.append(sums[gidx].astype(acc))
+        agg_cols = [f(prim) for f in finishers]
+        cols: List[np.ndarray] = [
+            (gidx + mins_d[0]).astype(compute_dtype_of(g.ty))]
+        valids: List[Optional[np.ndarray]] = [None]
+        for a, v in zip(node.aggregates, agg_cols):
+            cols.append(np.asarray(v))
+            valids.append(None)
+        dicts = getattr(node, "dicts", [None] * len(node.names))
+        return Mat(list(node.names), list(node.types), dicts, cols, valids)
+
+    def _try_pallas_multi_agg(self, node, get: b.LogicalGet, lits,
+                              specs, finishers, dense) -> Optional[Mat]:
+        """Multi-plane multi-aggregate grouped scan (TPC-H Q1-class, kernel
+        B3): N SUM/COUNT aggregates whose arguments are polynomials over
+        DECIMAL/integer scan columns (sum(price*(1-disc)*(1+tax)) expands
+        to signed combinations of monomial sums), grouped by a small dense
+        domain over up to 6 key columns, with conjunctive per-column range
+        filters, all fused with the succinct decode of every referenced
+        plane in one kernel pass (reference: perfect_aggregate_hashtable
+        .cpp + expression_executor.cpp, collapsed into the scan)."""
+        if not getattr(self.config, "pallas_scan_enabled", False):
+            return None
+        grouped = bool(node.groups)
+        if grouped:
+            if dense is None:
+                return None
+            mins_d, strides, sizes, domain = dense
+        else:
+            mins_d, strides, sizes, domain = [], [], [], 1
+        if not (1 <= domain <= grouped_scan.MAX_MULTI_GROUPS):
+            return None
+        for g in node.groups:
+            if not isinstance(g, b.BColumn):
+                return None
+        gcols = [g.index for g in node.groups]
+
+        # ---- decompose aggregate args into monomial plans ----
+        mono_ids: Dict[tuple, int] = {}
+        spec_plans = []
+        vcheck_cols = set()  # columns whose validity must be absent
+        for kind, arg, acc, distinct in specs:
+            if distinct:
+                return None
+            if kind == "count":
+                spec_plans.append(None)
+                continue
+            if kind == "count_arg":
+                if arg is None:
+                    return None
+                pd = _poly_decompose(arg, lits)
+                if pd is None:
+                    return None
+                for m in pd[0]:
+                    vcheck_cols.update(m)
+                spec_plans.append(None)
+                continue
+            if kind != "sum":
+                return None
+            pd = _poly_decompose(arg, lits)
+            if pd is None:
+                return None
+            terms, scale = pd
+            declared = arg.ty.scale if arg.ty.name == "DECIMAL" else 0
+            if scale != declared:
+                return None
+            plan = []
+            for mono, coef in terms.items():
+                if coef == 0:
+                    continue
+                if len(mono) > grouped_scan.MAX_MONO_DEGREE:
+                    return None
+                mi = (None if len(mono) == 0
+                      else mono_ids.setdefault(mono, len(mono_ids)))
+                plan.append((int(coef), mi))
+                vcheck_cols.update(mono)
+            spec_plans.append(plan)
+        monos = [m for m, _i in sorted(mono_ids.items(), key=lambda kv: kv[1])]
+
+        # ---- fold filters into per-column integer ranges ----
+        folded = _fold_ranges(get.filters, lits)
+        if folded is None:
+            return None
+        ranges, empty_all = folded
+        if len(ranges) > grouped_scan.MAX_MULTI_PLANES:
+            return None
+
+        mono_cols = sorted({c for m in monos for c in m})
+        plane_cols = sorted(set(mono_cols) | set(ranges))
+        if not plane_cols and not gcols:
+            # nothing to unpack (bare count(*)): no word planes to derive
+            # the lane count from; the host answers counts from metadata
+            return None
+        if len(plane_cols) > grouped_scan.MAX_MULTI_PLANES or \
+                len(gcols) > grouped_scan.MAX_GROUP_PLANES:
+            return None
+        plane_pos = {c: p for p, c in enumerate(plane_cols)}
+        kmonos = tuple(tuple(plane_pos[c] for c in m) for m in monos)
+        kpreds = tuple(plane_pos[c] for c in sorted(ranges))
+        vcheck_only = sorted(vcheck_cols - set(plane_cols) - set(gcols))
+
+        # plane types must be exact integers (scaled DECIMAL / int / date
+        # / dict codes); floats can't ride the integer kernel
+        for c in plane_cols + gcols:
+            ty = get.types[c]
+            if ty.is_float or (ty.is_string and c not in gcols):
+                return None
+
+        # ---- per-segment eligibility sweep + class pooling ----
+        snap = self._pin_snapshot(get.table)
+        candidates = self._zonemap_candidates(get, lits, snap)
+        classes: Dict[tuple, list] = {}
+        plane_vmax = [0] * len(plane_cols)
+        for i in candidates:
+            if snap.delete_mask(i) is not None:
+                return None
+            entry_planes = []
+            for c in gcols + plane_cols + vcheck_only:
+                s = snap.segment(get.column_ids[c], i)
+                if s._validity_np is not None:
+                    return None
+                if c in vcheck_only and c not in plane_cols:
+                    continue
+                if not s.is_compacted() or s.codec not in (None, "succinct"):
+                    return None
+                meta, arrs = s.reader_arrays()
+                if meta[0] != "packed":
+                    return None
+                widths, L, _dt = meta[1]
+                if len(widths) > 1 and widths[1] != 0:
+                    return None  # true 64-bit span: host tier
+                w = widths[0]
+                mf = s._packed.min_factor
+                word = arrs[0] if w > 0 else None
+                entry_planes.append((c, w, L, int(mf), int(s.vmax), word,
+                                     s.serial, s.version))
+            key = tuple((c, w) for c, w, *_r in entry_planes)
+            classes.setdefault(key, []).append(
+                (i, snap.segment_rows(i), entry_planes))
+
+        n_group_planes = len(gcols)
+        for entries in classes.values():
+            for _i, _cnt, planes in entries:
+                for pj, (c, w, L, mf, vmax, _wd, _sid, _v) in \
+                        enumerate(planes):
+                    if pj < n_group_planes:
+                        if mf - (mins_d[pj] if grouped else 0) < 0:
+                            return None
+                    else:
+                        p = pj - n_group_planes
+                        if c in mono_cols and (mf < 0 or vmax >= (1 << 31)):
+                            return None
+                        plane_vmax[p] = max(plane_vmax[p], vmax)
+        # per-row monomial product must stay exact in u32
+        for m in monos:
+            prod = 1
+            for c in m:
+                prod *= max(1, plane_vmax[plane_pos[c]])
+            if prod >= (1 << 32):
+                return None
+
+        kstrides = tuple(int(s) for s in strides) if grouped else ()
+        launches = []
+        if not empty_all:
+            cache = getattr(get.table, "_pool_cache", None)
+            if cache is None:
+                cache = get.table._pool_cache = {}
+            for ckey, entries in classes.items():
+                if not any(w > 0 for _c, w in ckey):
+                    # all-constant planes: no words to size the lane grid
+                    return None
+                scal = np.zeros((len(entries), grouped_scan.SCAL_COLS),
+                                np.uint32)
+                seg_sig = []
+                for ei, (i, cnt_i, planes) in enumerate(entries):
+                    scal[ei, grouped_scan._SC_COUNT] = cnt_i
+                    scal[ei, grouped_scan._SC_LORIG] = bitpack.lanes_for(cnt_i)
+                    seg_empty = False
+                    for pj, (c, w, L, mf, vmax, _wd, sid, sver) in \
+                            enumerate(planes):
+                        seg_sig.append((sid, sver))
+                        if pj < n_group_planes:
+                            scal[ei, grouped_scan._SC_GMIN + pj] = \
+                                mf - (mins_d[pj] if grouped else 0)
+                        else:
+                            p = pj - n_group_planes
+                            if c in mono_cols:
+                                # gated to [0, 2^31) above
+                                scal[ei, grouped_scan._SC_VMIN + p] = mf
+                            rr = ranges.get(c)
+                            if rr is not None:
+                                q = kpreds.index(p)
+                                lo_v = -(1 << 62) if rr[0] is None else rr[0]
+                                hi_v = (1 << 62) if rr[1] is None else rr[1]
+                                lo_c = min(max(lo_v - mf, 0), 0xFFFFFFFF)
+                                hi_c = min(hi_v - mf, 0xFFFFFFFF)
+                                if hi_c < lo_c:
+                                    seg_empty = True
+                                else:
+                                    scal[ei, grouped_scan._SC_PRED + 2 * q] = lo_c
+                                    scal[ei, grouped_scan._SC_PRED + 2 * q + 1] = \
+                                        max(0, hi_c)
+                    if seg_empty:
+                        scal[ei, grouped_scan._SC_COUNT] = 0
+                        scal[ei, grouped_scan._SC_PRED:] = 0
+                stack_key = ("multi", ckey, tuple(seg_sig))
+                stacked = cache.get(stack_key)
+                if stacked is None:
+                    L_pad = max([L for _i2, _c2, planes in entries
+                                 for _c3, w, L, *_r3 in planes if w > 0])
+                    gstacks, vstacks = [], []
+                    for pj in range(len(entries[0][2])):
+                        stackp = None
+                        if entries[0][2][pj][1] > 0:
+                            stackp = _stack_planes(
+                                [e[2][pj][5] for e in entries], L_pad)
+                        (gstacks if pj < n_group_planes
+                         else vstacks).append(stackp)
+                    stacked = (gstacks, vstacks)
+                    _cache_put(cache, stack_key, stacked)
+                launches.append((stacked[0], stacked[1], scal))
+            # shape checks before any launch: a shape the kernel does not
+            # take goes to the host tier; a failing launch raises
+            try:
+                for gstacks, vstacks, scal in launches:
+                    grouped_scan.check_multi(gstacks, vstacks, scal, domain,
+                                             kstrides, kmonos, kpreds)
+            except ValueError:
+                return None
+        sums = np.zeros((domain, len(monos)), np.int64)
+        cnts = np.zeros(domain, np.int64)
+        for gstacks, vstacks, scal in launches:
+            out = grouped_scan.multi_grouped_scan_table(
+                gstacks, vstacks, scal, domain, kstrides, kmonos, kpreds)
+            sums += out[:, :len(monos)]
+            cnts += out[:, len(monos)]
+
+        # ---- finish ----
+        def spec_prim(plan, gsel):
+            if plan is None:
+                return cnts[gsel]
+            acc = np.zeros_like(cnts[gsel])
+            for coef, mi in plan:
+                acc = acc + coef * (cnts[gsel] if mi is None
+                                    else sums[gsel, mi])
+            return acc
+
+        self.db.dist_stats["pallas_multi_agg"] = \
+            self.db.dist_stats.get("pallas_multi_agg", 0) + 1
+        if not grouped:
+            prim = []
+            for plan in spec_plans:
+                v = spec_prim(plan, slice(None))
+                prim.append(int(v[0]))
+            out_vals = [f(prim) for f in finishers]
+            cols, valids = _agg_finalize_row(node, out_vals)
+            dicts = getattr(node, "dicts", [None] * len(node.names))
+            return Mat(list(node.names), list(node.types), dicts, cols,
+                       valids)
+        present = cnts > 0
+        gidx = np.nonzero(present)[0]
+        prim = [spec_prim(plan, gidx) for plan in spec_plans]
+        agg_cols = [f(prim) for f in finishers]
+        cols = []
+        valids = []
+        for gi, g in enumerate(node.groups):
+            vals = (gidx // strides[gi]) % sizes[gi] + mins_d[gi]
+            cols.append(vals.astype(compute_dtype_of(g.ty)))
+            valids.append(None)
+        for a, v in zip(node.aggregates, agg_cols):
+            cols.append(np.asarray(v))
+            valids.append(None)
         dicts = getattr(node, "dicts", [None] * len(node.names))
         return Mat(list(node.names), list(node.types), dicts, cols, valids)
 
@@ -911,24 +1368,20 @@ def _min_sentinel(dt):
     return np.finfo(dt).min if dt.kind == "f" else np.iinfo(dt).min
 
 
-def _stack_planes(entries, L_pad: int, with_valid: bool):
-    """Stack same-width packed planes (zero-padded to L_pad lanes) into one
-    (n_seg, width, L_pad) tensor and, when any segment has NULLs, their
-    validity planes into (n_seg, 1, L_pad) (all-ones where a segment has
-    none). entries: (words, count, min, lanes, serial, version, valid)."""
-    def padw(words):
-        if words.shape[1] == L_pad:
-            return words
-        return torch.nn.functional.pad(words, (0, L_pad - words.shape[1]))
+def _stack_planes(planes, L_pad: int) -> torch.Tensor:
+    """Stack same-width (width, lanes) int32 word planes, zero-padded on the
+    lane axis to L_pad, into one (n, width, L_pad) tensor."""
+    return torch.stack([
+        p if p.shape[1] == L_pad
+        else torch.nn.functional.pad(p, (0, L_pad - p.shape[1]))
+        for p in planes])
 
-    wstk = torch.stack([padw(e[0]) for e in entries])
-    vstk = None
-    if with_valid:
-        ones = torch.full((1, L_pad), -1, dtype=torch.int32,
-                          device=wstk.device)  # every bit set
-        vstk = torch.stack([ones if e[6] is None else padw(e[6])
-                            for e in entries])
-    return wstk, vstk
+
+def _cache_put(cache: dict, key, value) -> None:
+    """Table-level device-stack cache: a few entries, cleared when full."""
+    if len(cache) > 8:
+        cache.clear()
+    cache[key] = value
 
 
 def _fold_ranges(filters, lits):
@@ -980,6 +1433,63 @@ def _agg_finalize_row(node, out_vals):
             cols.append(np.asarray([v]))
             valids.append(None)
     return cols, valids
+
+
+def _poly_decompose(e: b.BExpr, lits):
+    """Expand an integer/DECIMAL scalar expression over scan columns into
+    polynomial terms in the SCALED-integer domain.
+
+    Mirrors the engine's decimal arithmetic exactly (exec/expr.py binary
+    eval + the binder's typing): '+'/'-' rescale both sides to the max
+    scale, '*' multiplies scaled values (scales add). Returns
+    (terms, scale) where terms maps a sorted tuple of scan-column indices
+    (the monomial; () is the constant term) to an integer coefficient —
+    so sum(price * (1 - disc) * (1 + tax)) decomposes to
+    1e4*S(price) - 1e2*S(price*disc) + 1e2*S(price*tax) - S(price*disc*tax)
+    — or None when the expression doesn't fit (floats, division,
+    functions, strings)."""
+    if isinstance(e, b.BColumn):
+        ty = e.ty
+        if ty.is_float or ty.is_string or not (
+                ty.integer or ty.name == "DECIMAL"):
+            return None
+        return {(e.index,): 1}, (ty.scale if ty.name == "DECIMAL" else 0)
+    if isinstance(e, b.BLiteral):
+        v = lits[e.param] if e.param is not None else e.value
+        if v is None or isinstance(v, str):
+            return None
+        if isinstance(v, float):
+            if not float(v).is_integer():
+                return None
+            v = int(v)
+        if e.ty.name == "DECIMAL":
+            return {(): int(v)}, e.ty.scale
+        if not e.ty.integer:
+            return None
+        return {(): int(v)}, 0
+    if isinstance(e, b.BBinary) and e.op in ("+", "-", "*"):
+        lp = _poly_decompose(e.left, lits)
+        rp = _poly_decompose(e.right, lits)
+        if lp is None or rp is None:
+            return None
+        lt, ls = lp
+        rt, rs = rp
+        if e.op in ("+", "-"):
+            s = max(ls, rs)
+            out: Dict[tuple, int] = {}
+            for m, c in lt.items():
+                out[m] = out.get(m, 0) + c * 10 ** (s - ls)
+            sgn = 1 if e.op == "+" else -1
+            for m, c in rt.items():
+                out[m] = out.get(m, 0) + sgn * c * 10 ** (s - rs)
+            return out, s
+        out = {}
+        for m1, c1 in lt.items():
+            for m2, c2 in rt.items():
+                m = tuple(sorted(m1 + m2))
+                out[m] = out.get(m, 0) + c1 * c2
+        return out, ls + rs
+    return None
 
 
 def _zonemap_probe(f: b.BExpr, lits):

@@ -6,21 +6,34 @@ device, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and a C++ compiler, and
 imports nothing of JAX. Phases, one line each, any failure exits non-zero:
 
 1. device: the card's name and power limit, CUDA present;
-2. build: the table-scan kernel (csrc/table_scan.cu, nvcc for sm_90a) and
+2. build: the kernels (csrc/*.cu, one nvcc per source, for sm_90a) and
    the native host library, from the checkout's sources;
-3. kernel == plain version on the card: every width 1..32 x {plain,
-   predicate, min/max, validity plane}, ragged lanes and counts, signed
-   minima, empty ranges; the kernel's (sum, count, vmin, vmax) must equal
-   scan_table_reference exactly;
+3. kernels == plain versions on the card, every comparison exact:
+   - table scan (B1): every width 1..32 x {plain, predicate, min/max,
+     validity plane}, ragged lanes and counts, signed minima, empty ranges;
+   - grouped scan (B2): group widths 1..32 x value widths {1, 7, 16, 31,
+     32} and value widths 1..32 x group widths {1, 3, 4}, ragged counts
+     and lanes, signed minima, group ids outside the domain, ranges empty
+     for all or some segments;
+   - multi grouped scan (B3): 0..6 group planes with mixed strides, 1..8
+     value planes with width-0 and width-32 planes, monomials of degree
+     1..3, 1/6/16 groups, predicates on 0..8 planes, emptied segments;
 4. main path at the reference's scale (zipf_distribution.cpp: 100M
    UINTEGER rows): appender ingest in 8M-row chunks, compaction,
    SELECT count(*), sum(i), a filtered count/sum/min/max, 1,000 Zipf(k=1)
-   point lookups, all checked; hot end-to-end scan time;
-5. NULLs: count/sum over a 1M-row INTEGER column with a validity mask;
-6. timing: the kernel and its plain version at the main path's shape
-   (CUDA events), after the launch count of phases 4-5 was read.
+   point lookups, all checked; hot end-to-end scan time; then NULLs:
+   count/sum over a 1M-row INTEGER column with a validity mask (B1);
+5. TPC-H Q1 and Q6 at scale factor 10 (B3): the 7 lineitem columns the
+   two queries read (~60M rows), compaction, cold and hot times, each
+   answer held against the host tier and against numpy;
+6. grouped aggregate (B2): 100M rows of t3(g INTEGER, v INTEGER), 12
+   groups, a plain and a filtered GROUP BY held against numpy;
+7. timing: each kernel alone, its wrapper and its plain version at its
+   main path's shape (CUDA events), after the launch counts were read.
 
-The last two lines are the kernels' JSON record and the result line.
+Each main path (4, 5, 6) runs with the launch counts set to 0 just before
+it and read just after. The last two lines are the kernels' JSON record
+and the result line.
 """
 
 from __future__ import annotations
@@ -38,6 +51,12 @@ CHUNK = 8 << 20
 N_LOOKUPS = 1000
 NULL_ROWS = 1_000_000
 HOT_RUNS = 10
+TPCH_SF = 10
+T3_ROWS = 100_000_000
+T3_GROUPS = 12
+# the lineitem columns TPC-H Q1 and Q6 read
+Q16_COLUMNS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+               "l_returnflag", "l_linestatus", "l_shipdate"]
 
 
 class SmokeFailure(Exception):
@@ -210,6 +229,463 @@ def nulls(db, con, n_rows):
     phase("nulls", t0, f"{tuple(int(x) for x in got[0])} == numpy")
 
 
+def _pack_stack(codes_per_seg, width, L):
+    """(n_seg, width, L) uint32 words of per-segment code arrays."""
+    import numpy as np
+
+    from adacom_tpu_torch.ops import bitpack
+
+    out = np.zeros((len(codes_per_seg), width, L), np.uint32)
+    for s, codes in enumerate(codes_per_seg):
+        out[s, :, :bitpack.lanes_for(len(codes))] = \
+            bitpack.pack_numpy(codes, width)
+    return out
+
+
+def _group_codes(rng, seg_rows, width, n_groups):
+    """Codes mostly inside [0, n_groups] plus 5% at random full width
+    (ids far outside the domain)."""
+    import numpy as np
+
+    top = (1 << width) - 1
+    segs = []
+    for n in seg_rows:
+        c = rng.integers(0, min(top, n_groups + 1), n, endpoint=True,
+                         dtype=np.uint64)
+        wide = rng.random(n) < 0.05
+        c[wide] = rng.integers(0, top, int(wide.sum()), endpoint=True,
+                               dtype=np.uint64)
+        segs.append(c.astype(np.uint32))
+    return segs
+
+
+def _value_codes(rng, seg_rows, width):
+    import numpy as np
+
+    return [rng.integers(0, 1 << width, n, dtype=np.uint64).astype(np.uint32)
+            for n in seg_rows]
+
+
+def grouped_vs_plain(dev, seg_rows=(65536, 65536, 40000, 65536 - 13, 777)):
+    """Phase 3, B2: the grouped scan against its plain version on the same
+    CUDA tensors. Returns (comparisons, max_abs_err)."""
+    import numpy as np
+    import torch
+
+    from adacom_tpu_torch.ops import bitpack, grouped_scan
+
+    rng = np.random.default_rng(0xB2)
+    lanes = [bitpack.lanes_for(n) for n in seg_rows]
+    L = max(lanes)
+    gmins = [0, 2, -1, 0, 5][:len(seg_rows)]      # rebased; -1 drops code 0
+    vmins = [0, -4000, 123, -(1 << 31), 1 << 30][:len(seg_rows)]
+    combos = [(gw, vw) for gw in range(1, 33) for vw in (1, 7, 16, 31, 32)]
+    combos += [(gw, vw) for vw in range(1, 33) for gw in (1, 3, 4)]
+    n_cmp, max_err = 0, 0
+    for k, (gw, vw) in enumerate(combos):
+        n_groups = (1, 6, 12, 16)[k % 4]
+        g = _pack_stack(_group_codes(rng, seg_rows, gw, n_groups), gw, L)
+        v = _pack_stack(_value_codes(rng, seg_rows, vw), vw, L)
+        g_t = torch.from_numpy(g.view(np.int32)).to(dev)
+        v_t = torch.from_numpy(v.view(np.int32)).to(dev)
+        top = (1 << vw) - 1
+        ranges = [(None, None), (-3000, 123 + top // 2), (10**12, 10**13),
+                  (-(1 << 31) + top // 3, -3500)]
+        for lo, hi in ranges:
+            args = (g_t, v_t, list(seg_rows), gmins, vmins, n_groups, lo, hi,
+                    lanes)
+            got = grouped_scan.grouped_scan_table(*args)
+            torch.cuda.synchronize()
+            ref = grouped_scan.grouped_scan_table_reference(*args)
+            max_err = max(max_err, int(np.abs(got - ref).max()))
+            n_cmp += 1
+            check(np.array_equal(got, ref),
+                  f"B2 gw {gw} vw {vw} G {n_groups} [{lo}, {hi}]: kernel "
+                  f"{got.tolist()} != plain {ref.tolist()}")
+    return n_cmp, max_err
+
+
+def _multi_case(rng, k, seg_rows, L):
+    """One B3 shape of the sweep: cycles group planes 0..6, value planes
+    1..8, groups {1, 6, 16}; widths include 0 and 32."""
+    import numpy as np
+
+    from adacom_tpu_torch.ops import bitpack, grouped_scan
+
+    n_gp, n_vp = k % 7, 1 + k % 8
+    n_groups = (1, 6, 16)[k % 3]
+    gws = [int(rng.choice([0, 1, 2, 3, 32], p=[.15, .3, .3, .2, .05]))
+           for _ in range(n_gp)]
+    vws = [int(rng.choice([0, 1, 5, 13, 20, 32])) for _ in range(n_vp)]
+    vws[k % n_vp] = 32 if k % 2 else 0
+    strides = [int(rng.integers(0, 9)) for _ in range(n_gp)]
+    monos = [tuple(int(p) for p in rng.integers(0, n_vp, int(rng.integers(1, 4))))
+             for _ in range(int(rng.integers(0, 6)))]
+    n_pred = 8 if k % 5 == 0 else int(rng.integers(0, n_vp + 1))
+    preds = [int(p) for p in rng.permutation(max(n_vp, n_pred))[:n_pred]
+             % n_vp]
+    n_seg = len(seg_rows)
+    scal = np.zeros((n_seg, grouped_scan.SCAL_COLS), np.uint32)
+    scal[:, grouped_scan._SC_COUNT] = seg_rows
+    scal[:, grouped_scan._SC_LORIG] = [bitpack.lanes_for(n) for n in seg_rows]
+    gst, vst = [], []
+    for j, w in enumerate(gws):
+        scal[:, grouped_scan._SC_GMIN + j] = rng.integers(0, 3, n_seg)
+        gst.append(_pack_stack(_group_codes(rng, seg_rows, w, 3), w, L)
+                   if w else None)
+    for p, w in enumerate(vws):
+        scal[:, grouped_scan._SC_VMIN + p] = rng.choice(
+            [0, 7, 999, (1 << 31) + 5], n_seg)
+        vst.append(_pack_stack(_value_codes(rng, seg_rows, w), w, L)
+                   if w else None)
+    for q, p in enumerate(preds):
+        top = (1 << max(vws[p], 1)) - 1
+        scal[:, grouped_scan._SC_PRED + 2 * q] = rng.integers(0, top // 3 + 1,
+                                                               n_seg)
+        scal[:, grouped_scan._SC_PRED + 2 * q + 1] = rng.integers(
+            top // 2, top, n_seg, endpoint=True)
+    if not any(w for w in gws + vws):
+        vws[0] = 5
+        vst[0] = _pack_stack(_value_codes(rng, seg_rows, 5), 5, L)
+    return gst, vst, scal, n_groups, strides, monos, preds
+
+
+def multi_vs_plain(dev, n_cases=56,
+                   seg_rows=(65536, 40000, 777, 65536 - 13)):
+    """Phase 3, B3: the multi grouped scan against its plain version on the
+    same CUDA tensors, each shape also with a segment emptied (count 0, as
+    the executor saturates an empty range). Returns (comparisons,
+    max_abs_err)."""
+    import numpy as np
+    import torch
+
+    from adacom_tpu_torch.ops import bitpack, grouped_scan
+
+    rng = np.random.default_rng(0xB3)
+    L = max(bitpack.lanes_for(n) for n in seg_rows)
+    n_cmp, max_err, kept = 0, 0, 0
+    for k in range(n_cases):
+        gst, vst, scal, n_groups, strides, monos, preds = \
+            _multi_case(rng, k, seg_rows, L)
+        g_t = [None if a is None else torch.from_numpy(a.view(np.int32)).to(dev)
+               for a in gst]
+        v_t = [None if a is None else torch.from_numpy(a.view(np.int32)).to(dev)
+               for a in vst]
+        emptied = scal.copy()
+        emptied[1, grouped_scan._SC_COUNT] = 0
+        emptied[1, grouped_scan._SC_PRED:] = 0
+        for sc in (scal, emptied):
+            args = (g_t, v_t, sc, n_groups, strides, monos, preds)
+            got = grouped_scan.multi_grouped_scan_table(*args)
+            torch.cuda.synchronize()
+            ref = grouped_scan.multi_grouped_scan_table_reference(*args)
+            max_err = max(max_err, int(np.abs(got - ref).max()))
+            kept += int(ref[:, -1].sum())
+            n_cmp += 1
+            check(np.array_equal(got, ref),
+                  f"B3 case {k} (groups {[None if a is None else a.shape[1] for a in gst]}"
+                  f" strides {strides} values "
+                  f"{[None if a is None else a.shape[1] for a in vst]} monos "
+                  f"{monos} preds {preds} G {n_groups}): kernel "
+                  f"{got.tolist()} != plain {ref.tolist()}")
+    check(kept > 0, "B3 sweep: no row passed any predicate")
+    return n_cmp, max_err
+
+
+class Recorder:
+    """Wraps a module-level entry point and keeps the arguments of each
+    call while on (the call itself goes through unchanged)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.calls = []
+        self.on = False
+
+        def record(*args, **kw):
+            if self.on:
+                self.calls.append((args, kw))
+            return self.real(*args, **kw)
+
+        setattr(module, name, record)
+
+    def restore(self):
+        setattr(self.module, self.name, self.real)
+
+
+def _close(a, b, rel):
+    return abs(a - b) <= rel * max(1.0, abs(b))
+
+
+def _same_rows(got, want, what):
+    """Integers and counts identical; floats within 1e-9 relative."""
+    check(len(got) == len(want), f"{what}: {len(got)} rows != {len(want)}")
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if isinstance(x, float):
+                check(_close(x, y, 1e-9), f"{what}: {g} != {w}")
+            else:
+                check(x == y, f"{what}: {g} != {w}")
+
+
+def _tpch_oracle(li):
+    """TPC-H Q1 and Q6 in numpy over the generated arrays: Q1 as
+    {(rf, ls): (sum_qty, sum_base, sum_disc_price, sum_charge, count)}
+    in scaled integers (scales 2, 2, 4, 6), Q6 as the scaled (4) sum."""
+    import numpy as np
+
+    from adacom_tpu_torch.sql.binder import days_from_iso
+
+    qty, price = li["l_quantity"], li["l_extendedprice"]
+    disc, tax, ship = li["l_discount"], li["l_tax"], li["l_shipdate"]
+    rf = np.frombuffer(li["l_returnflag"].astype("S1"), np.uint8)
+    ls = np.frombuffer(li["l_linestatus"].astype("S1"), np.uint8)
+    m = ship <= days_from_iso("1998-09-02")
+    disc_price = price * (100 - disc)
+    charge = disc_price * (100 + tax)
+    q1 = {}
+    for f in sorted(set(np.unique(rf[m]).tolist())):
+        for s_ in sorted(set(np.unique(ls[m]).tolist())):
+            sel = m & (rf == f) & (ls == s_)
+            if sel.any():
+                q1[(chr(f), chr(s_))] = (
+                    int(qty[sel].sum()), int(price[sel].sum()),
+                    int(disc_price[sel].sum()), int(charge[sel].sum()),
+                    int(sel.sum()))
+    m6 = ((ship >= days_from_iso("1994-01-01"))
+          & (ship < days_from_iso("1995-01-01"))
+          & (disc >= 5) & (disc <= 7) & (qty < 2400))
+    return q1, int((price[m6] * disc[m6]).sum())
+
+
+def tpch_path(hot_runs):
+    """Phase 5: lineitem at SF 10 (7 columns), compaction, Q1 and Q6 cold
+    and hot, held against the host tier and numpy. Returns the timings and
+    the B3 calls of one hot Q1 and one hot Q6."""
+    import numpy as np
+
+    import adacom_tpu_torch as att
+    from adacom_tpu_torch.bench import tpch
+    from adacom_tpu_torch.ops import grouped_scan
+
+    t0 = time.perf_counter()
+    li = tpch.generate_lineitem(TPCH_SF)
+    li = {c: li[c] for c in Q16_COLUMNS}
+    n = len(li["l_quantity"])
+    t_gen = time.perf_counter() - t0
+    db = att.Database(platform="cuda")
+    con = db.connect()
+    ddl = tpch.DDL["lineitem"]
+    cols_sql = ", ".join(
+        part for part in ddl[ddl.index("(") + 1:-1].split(", ")
+        if part.split()[0] in Q16_COLUMNS)
+    con.query(f"CREATE TABLE lineitem({cols_sql})")
+    app = con.appender("lineitem")
+    for start in range(0, n, CHUNK):
+        app.append_columns({c: a[start:start + CHUNK] for c, a in li.items()})
+    app.close()
+    db.catalog.get_column_segment_catalog().compact_all_segments()
+    table = db.catalog.get_table("lineitem")
+    n_seg = len(table.columns["l_quantity"].segments)
+    phase("tpch-load", t0, f"SF {TPCH_SF} lineitem: {n} rows, {n_seg} "
+          f"segments per column, columns {Q16_COLUMNS} (the 8 that neither "
+          f"Q1 nor Q6 reads are not loaded); generate {t_gen:.1f} s")
+
+    q1_want, q6_want = _tpch_oracle(li)
+    rec = Recorder(grouped_scan, "multi_grouped_scan_table")
+    out = {}
+    try:
+        for q in (1, 6):
+            t0 = time.perf_counter()
+            sql = tpch.QUERIES[q]
+            before = grouped_scan.MULTI_LAUNCHES
+            t = time.perf_counter()
+            got = con.query(sql).fetchall()
+            t_cold = time.perf_counter() - t
+            check(grouped_scan.MULTI_LAUNCHES > before,
+                  f"TPC-H Q{q} skipped the B3 kernel")
+            hot = []
+            for i in range(hot_runs):
+                rec.on = i == 0
+                t = time.perf_counter()
+                again = con.query(sql).fetchall()
+                hot.append(time.perf_counter() - t)
+                rec.on = False
+                check(again == got, f"Q{q} hot run {i} differs from cold")
+            out[q] = dict(cold=t_cold, hot=statistics.median(hot),
+                          calls=list(rec.calls))
+            rec.calls.clear()
+            db.config.pallas_scan_enabled = False
+            t = time.perf_counter()
+            host = db.connect().query(sql).fetchall()
+            t_host = time.perf_counter() - t
+            db.config.pallas_scan_enabled = True
+            _same_rows(got, host, f"Q{q} B3 vs host tier")
+            if q == 1:
+                check(len(got) == len(q1_want),
+                      f"Q1: {len(got)} groups != numpy {len(q1_want)}")
+                for row in got:
+                    w = q1_want[(row[0], row[1])]
+                    for x, y, sc in zip(row[2:6], w[:4], (2, 2, 4, 6)):
+                        check(_close(float(x), y / 10 ** sc, 1e-12),
+                              f"Q1 {row[:2]}: {x} != numpy {y / 10 ** sc}")
+                    check(row[-1] == w[4], f"Q1 {row[:2]} count {row[-1]} "
+                                           f"!= numpy {w[4]}")
+                    check(_close(float(row[6]), w[0] / 100 / w[4], 1e-12),
+                          f"Q1 {row[:2]} avg_qty {row[6]}")
+                detail = f"{len(got)} groups, counts {[r[-1] for r in got]}"
+            else:
+                check(_close(float(got[0][0]), q6_want / 10**4, 1e-12),
+                      f"Q6: {got[0][0]} != numpy {q6_want / 10**4}")
+                detail = f"revenue {got[0][0]}"
+            phase(f"tpch-q{q}", t0, f"{detail} == host tier == numpy; "
+                  f"{len(out[q]['calls'])} B3 launch(es) per query; cold "
+                  f"{t_cold * 1e3:.1f} ms; host tier {t_host * 1e3:.1f} ms")
+            print(f"[tpch-q{q}] cold {t_cold * 1e3:.3f} ms", flush=True)
+            print(f"[tpch-q{q}] hot median of {hot_runs} "
+                  f"{out[q]['hot'] * 1e3:.3f} ms", flush=True)
+    finally:
+        rec.restore()
+    packed = sum(s.footprint_bytes() for c in table.columns.values()
+                 for s in c.segments)
+    out["packed_bytes"], out["plain_bytes"] = packed, sum(
+        n * table.columns[c].ltype.np_dtype.itemsize for c in Q16_COLUMNS)
+    out["db"] = db
+    return out
+
+
+def b2_path(hot_runs, n_rows=T3_ROWS):
+    """Phase 6: t3(g INTEGER, v INTEGER), 12 groups, v uniform in
+    [-10^6, 10^6); a plain and a filtered GROUP BY against numpy. Returns
+    the timings and the B2 calls of one hot plain query."""
+    import numpy as np
+
+    import adacom_tpu_torch as att
+    from adacom_tpu_torch.ops import grouped_scan
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0x7E3)
+    g = rng.integers(0, T3_GROUPS, n_rows).astype(np.int32)
+    v = rng.integers(-10**6, 10**6, n_rows).astype(np.int32)
+    db = att.Database(platform="cuda")
+    con = db.connect()
+    con.query("CREATE TABLE t3(g INTEGER, v INTEGER)")
+    app = con.appender("t3")
+    for start in range(0, n_rows, CHUNK):
+        app.append_columns({"g": g[start:start + CHUNK],
+                            "v": v[start:start + CHUNK]})
+    app.close()
+    db.catalog.get_column_segment_catalog().compact_all_segments()
+    phase("t3-load", t0, f"{n_rows} rows, {T3_GROUPS} groups")
+
+    def want(lo=None, hi=None):
+        keep = np.ones(n_rows, bool) if lo is None else (v >= lo) & (v < hi)
+        cnt = np.bincount(g[keep], minlength=T3_GROUPS)
+        sm = np.zeros(T3_GROUPS, np.int64)
+        np.add.at(sm, g[keep], v[keep].astype(np.int64))
+        return cnt, sm
+
+    rec = Recorder(grouped_scan, "grouped_scan_table")
+    try:
+        t0 = time.perf_counter()
+        sql = "SELECT g, sum(v), count(*), avg(v) FROM t3 GROUP BY g ORDER BY g"
+        before = grouped_scan.GROUPED_LAUNCHES
+        t = time.perf_counter()
+        got = con.query(sql).fetchall()
+        t_cold = time.perf_counter() - t
+        check(grouped_scan.GROUPED_LAUNCHES > before, "t3 skipped the B2 kernel")
+        cnt, sm = want()
+        check([int(r[0]) for r in got] == list(range(T3_GROUPS)),
+              f"t3 groups {[r[0] for r in got]}")
+        for r in got:
+            gi = int(r[0])
+            check(int(r[1]) == int(sm[gi]) and int(r[2]) == int(cnt[gi]),
+                  f"t3 group {gi}: {r} != numpy ({sm[gi]}, {cnt[gi]})")
+            check(_close(float(r[3]), sm[gi] / cnt[gi], 1e-12),
+                  f"t3 group {gi} avg {r[3]}")
+        hot = []
+        for i in range(hot_runs):
+            rec.on = i == 0
+            t = time.perf_counter()
+            again = con.query(sql).fetchall()
+            hot.append(time.perf_counter() - t)
+            rec.on = False
+            check(again == got, f"t3 hot run {i} differs")
+        lo, hi = 125_000, 400_000  # a negative literal does not fold
+        fsql = (f"SELECT g, count(*), sum(v) FROM t3 WHERE v >= {lo} AND "
+                f"v < {hi} GROUP BY g ORDER BY g")
+        before = grouped_scan.GROUPED_LAUNCHES
+        fgot = con.query(fsql).fetchall()
+        check(grouped_scan.GROUPED_LAUNCHES > before,
+              "filtered t3 skipped the B2 kernel")
+        cnt, sm = want(lo, hi)
+        check([(int(r[0]), int(r[1]), int(r[2])) for r in fgot]
+              == [(i, int(cnt[i]), int(sm[i])) for i in range(T3_GROUPS)],
+              f"filtered t3: {fgot} != numpy")
+    finally:
+        rec.restore()
+    t_hot = statistics.median(hot)
+    phase("t3-groupby", t0, f"GROUP BY g and WHERE v in [{lo}, {hi}) == "
+          f"numpy; cold {t_cold * 1e3:.1f} ms; hot median of {hot_runs} "
+          f"{t_hot * 1e3:.3f} ms")
+    return dict(cold=t_cold, hot=t_hot, calls=list(rec.calls), db=db)
+
+
+def time_grouped(calls, ms_iters=20, plain_iters=3):
+    """B2 alone / wrapper / plain version over recorded calls (ms per
+    query), after checking the kernel against the plain version there."""
+    import numpy as np
+
+    from adacom_tpu_torch.ops import grouped_scan
+
+    err = 0
+    for a, kw in calls:
+        got = grouped_scan.grouped_scan_table(*a, **kw)
+        ref = grouped_scan.grouped_scan_table_reference(*a, **kw)
+        check(np.array_equal(got, ref), f"B2 at the main path's shape: "
+                                        f"{got.tolist()} != {ref.tolist()}")
+        err = max(err, int(np.abs(got - ref).max()))
+    lps = [grouped_scan.prepare_grouped(*a, **kw)[0] for a, kw in calls]
+    ms = cuda_ms(lambda: [grouped_scan._launch(lp) for lp in lps], ms_iters)
+    wrapper = cuda_ms(lambda: [grouped_scan.grouped_scan_table(*a, **kw)
+                               for a, kw in calls], ms_iters)
+    plain = cuda_ms(lambda: [grouped_scan.grouped_scan_table_reference(
+        *a, **kw) for a, kw in calls], plain_iters)
+    return ms, wrapper, plain, err
+
+
+def time_multi(calls, ms_iters=20, plain_iters=3):
+    """B3 alone / wrapper / plain version over recorded calls (ms per
+    query), after checking the kernel against the plain version there."""
+    import numpy as np
+
+    from adacom_tpu_torch.ops import grouped_scan
+
+    err = 0
+    for a, kw in calls:
+        got = grouped_scan.multi_grouped_scan_table(*a, **kw)
+        ref = grouped_scan.multi_grouped_scan_table_reference(*a, **kw)
+        check(np.array_equal(got, ref), f"B3 at the main path's shape: "
+                                        f"{got.tolist()} != {ref.tolist()}")
+        err = max(err, int(np.abs(got - ref).max()))
+    lps = [grouped_scan.prepare_multi(*a, **kw) for a, kw in calls]
+    ms = cuda_ms(lambda: [grouped_scan._launch(lp) for lp in lps], ms_iters)
+    wrapper = cuda_ms(lambda: [grouped_scan.multi_grouped_scan_table(*a, **kw)
+                               for a, kw in calls], ms_iters)
+    plain = cuda_ms(lambda: [grouped_scan.multi_grouped_scan_table_reference(
+        *a, **kw) for a, kw in calls], plain_iters)
+    return ms, wrapper, plain, err
+
+
+def _packed_bytes(calls, kind):
+    """Packed bytes one query's launches read."""
+    total = 0
+    for args, _kw in calls:
+        stacks = list(args[:2]) if kind == "B2" else list(args[0]) + list(args[1])
+        total += sum(t.numel() * 4 for t in stacks if t is not None)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -222,7 +698,7 @@ def main() -> int:
 
     import adacom_tpu_torch as att
     from adacom_tpu_torch import build, native
-    from adacom_tpu_torch.ops import fused_scan
+    from adacom_tpu_torch.ops import fused_scan, grouped_scan
 
     # ---- 1. device ------------------------------------------------------
     t0 = time.perf_counter()
@@ -246,33 +722,48 @@ def main() -> int:
     log_path = [os.path.join(build.BUILD_DIR, f) for f in
                 os.listdir(build.BUILD_DIR)
                 if f.startswith("libadacom_kernels") and f.endswith(".log")]
-    regs, spills = [], []
+    regs, spills, grouped_regs = [], [], "n/a"
     for p in log_path:
         with open(p) as f:
             text = f.read()
         regs += [int(x) for x in re.findall(r"Used (\d+) registers", text)]
         spills += [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+        m = re.search(r"grouped_scan_kernel.*?\n.*?(\d+) bytes spill stores.*?"
+                      r"\n.*?Used (\d+) registers", text)
+        if m:
+            grouped_regs = f"{m.group(2)} registers, {m.group(1)} B spilled"
     phase("build", t0, f"kernels {t_kern:.1f} s, native "
           f"{t_all - t_kern:.1f} s; threads/block "
-          f"{lib.adacom_table_scan_threads()}; ptxas max registers "
+          f"{lib.adacom_table_scan_threads()} (B1), "
+          f"{lib.adacom_grouped_scan_threads()} (B2/B3); ptxas max registers "
           f"{max(regs) if regs else 'n/a'}, spill stores "
-          f"{sum(spills) if spills else 'n/a'} B over {len(regs)} kernels")
+          f"{sum(spills) if spills else 'n/a'} B over {len(regs)} kernels; "
+          f"grouped_scan_kernel {grouped_regs}")
 
-    # ---- 3. kernel against its plain version ----------------------------
+    # ---- 3. kernels against their plain versions ------------------------
     t0 = time.perf_counter()
-    n_cmp, max_err = kernel_vs_plain(dev)
-    phase("kernel==plain", t0, f"{n_cmp} comparisons over widths 1..32, "
-          f"all exact (max_abs_err {max_err})")
+    n_cmp, b1_err = kernel_vs_plain(dev)
+    phase("kernel==plain B1", t0, f"{n_cmp} comparisons over widths 1..32, "
+          f"all exact (max_abs_err {b1_err})")
+    t0 = time.perf_counter()
+    n_cmp, b2_err = grouped_vs_plain(dev)
+    phase("kernel==plain B2", t0, f"{n_cmp} comparisons (group x value "
+          f"widths, 4 ranges each), all exact (max_abs_err {b2_err})")
+    t0 = time.perf_counter()
+    n_cmp, b3_err = multi_vs_plain(dev)
+    phase("kernel==plain B3", t0, f"{n_cmp} comparisons (0..6 group planes, "
+          f"1..8 value planes, 0..8 predicates), all exact (max_abs_err "
+          f"{b3_err})")
 
-    # ---- 4./5. main path at 100M rows, then NULLs ------------------------
+    # ---- 4. main path at 100M rows, then NULLs (B1) ----------------------
     db = att.Database(platform="cuda")
     con = db.connect()
     fused_scan.KERNEL_LAUNCHES = 0  # count the main path's launches only
     segs = main_path(db, con, N_ROWS, HOT_RUNS, N_LOOKUPS)
     nulls(db, con, NULL_ROWS)
-    launches = fused_scan.KERNEL_LAUNCHES  # the main path's count, read now
+    b1_launches = fused_scan.KERNEL_LAUNCHES  # the main path's count, read now
 
-    # ---- 6. kernel and plain version at the main path's shape -----------
+    # B1 alone, its wrapper and its plain version at the main path's shape
     t0 = time.perf_counter()
     entries = [(s.reader_arrays()[1][0], s.count, s.packed().min_factor,
                 s.packed().n_lanes) for s in segs]
@@ -285,7 +776,7 @@ def main() -> int:
     got = fused_scan.scan_table(words, counts, mins, lanes=lanes)
     ref = fused_scan.scan_table_reference(words, counts, mins, lanes=lanes)
     check(got == ref, f"main-path shape: kernel {got} != plain {ref}")
-    max_err = max(max_err, max(abs(a - b) for a, b in zip(got, ref)))
+    b1_err = max(b1_err, max(abs(a - b) for a, b in zip(got, ref)))
     # the kernel alone: one launch on the stacked table
     scal, _ = fused_scan._scalars(len(counts), L, counts, mins, None, None,
                                   lanes)
@@ -302,27 +793,78 @@ def main() -> int:
                                    words.shape[1], L, blocks_y, stream)
         check(rc == 0, f"kernel launch failed: CUDA error {rc}")
 
-    ms = cuda_ms(launch, 50)
+    b1_ms = cuda_ms(launch, 50)
     wrapper_ms = cuda_ms(lambda: fused_scan.scan_table(
         words, counts, mins, lanes=lanes, device_out=True), 50)
-    plain_ms = cuda_ms(lambda: fused_scan.scan_table_reference(
+    b1_plain_ms = cuda_ms(lambda: fused_scan.scan_table_reference(
         words, counts, mins, lanes=lanes, device_out=True), 5)
     nbytes = words.numel() * 4
-    phase("timing", t0, f"shape {tuple(words.shape)} ({nbytes} B): kernel "
-          f"{ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s; wrapper (kernel + "
-          f"epilogue) {wrapper_ms:.4f} ms; plain version {plain_ms:.3f} ms")
+    phase("timing B1", t0, f"shape {tuple(words.shape)} ({nbytes} B): kernel "
+          f"{b1_ms:.4f} ms = {nbytes / b1_ms / 1e6:.1f} GB/s; wrapper (kernel "
+          f"+ epilogue) {wrapper_ms:.4f} ms; plain version "
+          f"{b1_plain_ms:.3f} ms")
+    del words, part, segs, entries
     db.close()
+    del db, con
 
-    print(json.dumps({"kernels": [{
-        "name": "table_scan",
-        "route": "cuda",
-        "source": "adacom_tpu_torch/csrc/table_scan.cu",
-        "replaces": "adacom_tpu/ops/pallas_scan.py:227",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # ---- 5. TPC-H Q1 and Q6 at SF 10 (B3) ---------------------------------
+    grouped_scan.MULTI_LAUNCHES = 0
+    tp = tpch_path(HOT_RUNS)
+    b3_launches = grouped_scan.MULTI_LAUNCHES
+
+    t0 = time.perf_counter()
+    b3 = {}
+    for q in (1, 6):
+        ms, wrapper, plain, err = time_multi(tp[q]["calls"])
+        b3_err = max(b3_err, err)
+        b3[q] = (ms, wrapper, plain)
+        nbytes = _packed_bytes(tp[q]["calls"], "B3")
+        print(f"[timing B3 Q{q}] {len(tp[q]['calls'])} launch(es), "
+              f"{nbytes} packed B: kernel {ms:.4f} ms = "
+              f"{nbytes / ms / 1e6:.1f} GB/s; wrapper {wrapper:.4f} ms; "
+              f"plain version {plain:.3f} ms; hot query "
+              f"{tp[q]['hot'] * 1e3:.3f} ms, host time outside the wrapper "
+              f"{tp[q]['hot'] * 1e3 - wrapper:.3f} ms", flush=True)
+    phase("timing B3", t0, f"lineitem packed {tp['packed_bytes']} B vs "
+          f"plain {tp['plain_bytes']} B")
+    tp["db"].close()
+    del tp["db"]
+
+    # ---- 6. 100M-row GROUP BY (B2) -----------------------------------------
+    grouped_scan.GROUPED_LAUNCHES = 0
+    t3 = b2_path(HOT_RUNS)
+    b2_launches = grouped_scan.GROUPED_LAUNCHES
+
+    t0 = time.perf_counter()
+    b2_ms, b2_wrapper, b2_plain_ms, err = time_grouped(t3["calls"])
+    b2_err = max(b2_err, err)
+    nbytes = _packed_bytes(t3["calls"], "B2")
+    phase("timing B2", t0, f"{len(t3['calls'])} launch(es), {nbytes} packed "
+          f"B: kernel {b2_ms:.4f} ms = {nbytes / b2_ms / 1e6:.1f} GB/s; "
+          f"wrapper {b2_wrapper:.4f} ms; plain version {b2_plain_ms:.3f} ms; "
+          f"hot query {t3['hot'] * 1e3:.3f} ms")
+    t3["db"].close()
+    del t3["db"]
+
+    check(min(b1_launches, b2_launches, b3_launches) > 0,
+          f"a kernel was not launched on its main path: B1 {b1_launches}, "
+          f"B2 {b2_launches}, B3 {b3_launches}")
+    grouped_src = "adacom_tpu_torch/csrc/grouped_scan.cu"
+    print(json.dumps({"kernels": [
+        {"name": "table_scan", "route": "cuda",
+         "source": "adacom_tpu_torch/csrc/table_scan.cu",
+         "replaces": "adacom_tpu/ops/pallas_scan.py:227",
+         "launches": b1_launches, "max_abs_err": b1_err,
+         "ms": b1_ms, "plain_ms": b1_plain_ms},
+        {"name": "grouped_scan", "route": "cuda", "source": grouped_src,
+         "replaces": "adacom_tpu/ops/pallas_scan.py:529",
+         "launches": b2_launches, "max_abs_err": b2_err,
+         "ms": b2_ms, "plain_ms": b2_plain_ms},
+        {"name": "multi_grouped_scan", "route": "cuda", "source": grouped_src,
+         "replaces": "adacom_tpu/ops/pallas_scan.py:795",
+         "launches": b3_launches, "max_abs_err": b3_err,
+         "ms": b3[1][0], "plain_ms": b3[1][2]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0
