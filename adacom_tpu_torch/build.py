@@ -117,11 +117,13 @@ def kernels() -> ctypes.CDLL:
     lib.adacom_table_scan.restype = ci
     lib.adacom_table_scan_threads.argtypes = []
     lib.adacom_table_scan_threads.restype = ci
-    lib.adacom_multi_grouped_scan.argtypes = [vp] * 5 + [ci] * 5 + [vp, vp] \
-        + [ci] * 3 + [vp]
+    lib.adacom_multi_grouped_scan.argtypes = [vp] * 6 + [ci] * 5 + [vp, vp] \
+        + [ci] * 5 + [vp]
     lib.adacom_multi_grouped_scan.restype = ci
     lib.adacom_grouped_scan_threads.argtypes = []
     lib.adacom_grouped_scan_threads.restype = ci
+    lib.adacom_grouped_scan_blocks_per_sm.argtypes = [ci] * 4
+    lib.adacom_grouped_scan_blocks_per_sm.restype = ci
     return lib
 
 

@@ -47,7 +47,7 @@ from adacom_tpu_torch.ops import bitpack, fused_scan
 
 _M32 = 0xFFFFFFFF
 
-MAX_GROUPS = 16  # B2's group domain bound (the kernel's shared accumulators)
+MAX_GROUPS = 16  # B2's group domain bound (the kernel's accumulators)
 
 
 def grouped_supported(n_groups: int, gw: int, vw: int) -> bool:
@@ -58,7 +58,7 @@ MAX_MULTI_GROUPS = 16
 MAX_MULTI_PLANES = 8
 MAX_MONO_DEGREE = 3
 MAX_GROUP_PLANES = 6   # the scalar table holds 6 group minima
-MAX_MONOS = 32         # kernel descriptor bound (shared accumulators < 48 KB)
+MAX_MONOS = 32         # kernel descriptor bound (the warp mode's outputs)
 
 # scalar-table column layout, (n_seg, 32) uint32
 _SC_COUNT = 0
@@ -245,6 +245,55 @@ def multi_grouped_scan_table_reference(gstacks, vstacks, scal, n_groups,
 # ----------------------------------------------------------------------
 
 
+# Accumulator bytes a block may give private per-thread slots (the
+# kernel's kPrivateBytes): n_groups * n_out * threads * 8 B at most.
+PRIVATE_BYTES = 48 * 1024
+# The kernel's instantiations: the most bit readers (planes of width > 0)
+# each one carries.
+READER_CLASSES = (2, 4, 8, 14)
+
+
+def accumulator_mode(n_groups: int, n_out: int, threads: int) -> str:
+    """"private" (per-thread u64 slots, no atomics) when a block's slots fit
+    in PRIVATE_BYTES of shared memory, else "warp" (warp-aggregated adds)."""
+    return ("private" if n_groups * n_out * threads * 8 <= PRIVATE_BYTES
+            else "warp")
+
+
+def reader_class(n_readers: int) -> int:
+    """The smallest instantiation that carries `n_readers` bit readers."""
+    for c in READER_CLASSES:
+        if n_readers <= c:
+            return c
+    raise ValueError(f"{n_readers} bit readers (at most {READER_CLASSES[-1]})")
+
+
+def launch_blocks(n_seg: int, n_lanes: int, threads: int,
+                  resident: int) -> int:
+    """Persistent blocks for n_seg * ceil(n_lanes / threads) (segment, lane
+    tile) pieces: one per block the card holds at once, never more blocks
+    than pieces."""
+    return max(1, min(n_seg * math.ceil(n_lanes / threads), resident))
+
+
+_RESIDENT = {}
+
+
+def _resident_blocks(lib, dev, cap: int, private: bool, n_groups: int,
+                     n_out: int) -> int:
+    """Blocks of this instantiation and shape the whole card holds at once."""
+    key = (dev.index, cap, private, n_groups, n_out)
+    if key not in _RESIDENT:
+        per_sm = lib.adacom_grouped_scan_blocks_per_sm(cap, int(private),
+                                                       n_groups, n_out)
+        if per_sm < 1:
+            raise RuntimeError(f"grouped_scan kernel fits no SM "
+                               f"(occupancy query returned {per_sm})")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _RESIDENT[key] = per_sm * sms
+    return _RESIDENT[key]
+
+
 @dataclasses.dataclass
 class _Launch:
     """One prepared kernel launch: device inputs and output, and the host
@@ -252,15 +301,19 @@ class _Launch:
 
     planes: List[Optional[torch.Tensor]]  # 6 group slots, then 8 value slots
     widths: np.ndarray                    # (14,) int32
+    plane_lanes: np.ndarray               # (14,) int32, each stack's lanes
     strides: np.ndarray                   # (6,) uint32
     monos: np.ndarray                     # (n_mono, 3) int32, -1 pads
     preds: np.ndarray                     # (n_pred,) int32
     scal: torch.Tensor                    # (n_seg, 32) int32 on the device
-    out: torch.Tensor                     # (n_seg, blocks_y, G, n_out) int64
+    out: torch.Tensor                     # (n_seg, G, n_out) int64
     n_gp: int
     n_vp: int
     n_groups: int
     n_lanes: int
+    readers: int                          # instantiation (READER_CLASSES)
+    private: bool                         # accumulator mode
+    blocks: int
 
 
 def _prepare(gstacks, vstacks, scal_np, n_groups, strides, monos, preds,
@@ -272,53 +325,54 @@ def _prepare(gstacks, vstacks, scal_np, n_groups, strides, monos, preds,
             raise ValueError("plane stacks must be int32 on one device")
     lib = build.kernels()
     threads = lib.adacom_grouped_scan_threads()
-
-    def lane_pad(s):
-        if s is None:
-            return None
-        if int(s.shape[2]) != n_lanes:
-            s = torch.nn.functional.pad(s, (0, n_lanes - int(s.shape[2])))
-        return s.contiguous()
-
+    # a stack narrower than n_lanes is read in place: the kernel takes each
+    # stack's own lane count and reads its missing lanes as code 0
     planes = [None] * (MAX_GROUP_PLANES + MAX_MULTI_PLANES)
-    widths = np.zeros(len(planes), np.int32)
     for j, s in enumerate(gstacks):
-        planes[j] = lane_pad(s)
-        widths[j] = 0 if s is None else int(s.shape[1])
+        planes[j] = None if s is None else s.contiguous()
     for p, s in enumerate(vstacks):
-        planes[MAX_GROUP_PLANES + p] = lane_pad(s)
-        widths[MAX_GROUP_PLANES + p] = 0 if s is None else int(s.shape[1])
+        planes[MAX_GROUP_PLANES + p] = None if s is None else s.contiguous()
+    widths = np.array([0 if s is None else int(s.shape[1]) for s in planes],
+                      np.int32)
+    plane_lanes = np.array([0 if s is None else int(s.shape[2])
+                            for s in planes], np.int32)
     st = np.zeros(MAX_GROUP_PLANES, np.uint32)
     st[:len(strides)] = [int(x) for x in strides]
     mono_arr = np.full((len(monos), 3), -1, np.int32)
     for i, m in enumerate(monos):
         mono_arr[i, :len(m)] = m
     n_seg = int(scal_np.shape[0])
+    n_out = len(monos) + 1
     sc = torch.from_numpy(np.ascontiguousarray(scal_np, dtype=np.uint32)
                           .view(np.int32)).to(dev)
-    blocks_y = min(math.ceil(n_lanes / threads), 65535)
-    out = torch.empty((n_seg, blocks_y, n_groups, len(monos) + 1),
-                      dtype=torch.int64, device=dev)
-    return _Launch(planes, widths, st, mono_arr,
+    private = accumulator_mode(n_groups, n_out, threads) == "private"
+    cap = reader_class(len(stacks))
+    resident = _resident_blocks(lib, dev, cap, private, int(n_groups), n_out)
+    blocks = launch_blocks(n_seg, n_lanes, threads, resident)
+    out = torch.empty((n_seg, n_groups, n_out), dtype=torch.int64, device=dev)
+    return _Launch(planes, widths, plane_lanes, st, mono_arr,
                    np.asarray(preds, np.int32).reshape(-1), sc, out,
-                   len(gstacks), len(vstacks), int(n_groups), n_lanes)
+                   len(gstacks), len(vstacks), int(n_groups), n_lanes, cap,
+                   private, blocks)
 
 
 def _launch(lp: _Launch) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns the partials."""
+    """Zero the output and launch the kernel on the current stream; returns
+    the per-segment sums (n_seg, G, n_out)."""
     lib = build.kernels()
     ptrs = (ctypes.c_void_p * len(lp.planes))(
         *[None if t is None else t.data_ptr() for t in lp.planes])
     dev = lp.out.device
-    n_seg, blocks_y = int(lp.out.shape[0]), int(lp.out.shape[1])
     with torch.cuda.device(dev):
+        lp.out.zero_()
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.adacom_multi_grouped_scan(
-            ptrs, lp.widths.ctypes.data, lp.strides.ctypes.data,
-            lp.monos.ctypes.data, lp.preds.ctypes.data,
-            lp.n_gp, lp.n_vp, int(lp.monos.shape[0]), int(lp.preds.shape[0]),
-            lp.n_groups, lp.scal.data_ptr(), lp.out.data_ptr(),
-            n_seg, lp.n_lanes, blocks_y, stream)
+            ptrs, lp.widths.ctypes.data, lp.plane_lanes.ctypes.data,
+            lp.strides.ctypes.data, lp.monos.ctypes.data,
+            lp.preds.ctypes.data, lp.n_gp, lp.n_vp, int(lp.monos.shape[0]),
+            int(lp.preds.shape[0]), lp.n_groups, lp.scal.data_ptr(),
+            lp.out.data_ptr(), int(lp.out.shape[0]), lp.n_lanes, lp.readers,
+            int(lp.private), lp.blocks, stream)
     if rc != 0:
         raise RuntimeError(f"grouped_scan kernel launch failed: CUDA error {rc}")
     return lp.out
@@ -348,10 +402,9 @@ def prepare_grouped(gwords, vwords, counts, gmins, vmins, n_groups, lo=None,
     return lp, torch.from_numpy(vmins64).to(gwords.device)
 
 
-def _finish_grouped(part, vmins_t):
-    """(n_seg, blocks_y, G, 2) partials [code_sum, count] -> (G, 2) int64
+def _finish_grouped(seg, vmins_t):
+    """(n_seg, G, 2) per-segment [code_sum, count] -> (G, 2) int64
     [sum, count] on the device."""
-    seg = part.sum(dim=1)
     cnt = seg[..., 1]
     seg_sum = seg[..., 0] + cnt * vmins_t.view(-1, 1)
     return torch.stack([seg_sum.sum(dim=0), cnt.sum(dim=0)], dim=1)
@@ -413,4 +466,4 @@ def multi_grouped_scan_table(gstacks: Sequence[Optional[torch.Tensor]],
     part = _launch(prepare_multi(gstacks, vstacks, scal, n_groups, strides,
                                  monos, preds))
     MULTI_LAUNCHES += 1
-    return part.sum(dim=(0, 1)).cpu().numpy()  # the one host pull
+    return part.sum(dim=0).cpu().numpy()  # the one host pull

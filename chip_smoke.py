@@ -18,6 +18,12 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    - multi grouped scan (B3): 0..6 group planes with mixed strides, 1..8
      value planes with width-0 and width-32 planes, monomials of degree
      1..3, 1/6/16 groups, predicates on 0..8 planes, emptied segments;
+   - the edges of the kernel's design, for both: every kept row of a warp
+     in one group, 16 groups across a warp, terms of 0xFFFFFFFF on every
+     row (sums far past 2^32), 16 groups x 33 outputs (the warp-aggregated
+     accumulation; both accumulation modes must run), 300 segments of
+     ragged lanes (not a multiple of the 128-lane tile or of the grid), a
+     stack narrower than the others, a single segment;
 4. main path at the reference's scale (zipf_distribution.cpp: 100M
    UINTEGER rows): appender ingest in 8M-row chunks, compaction,
    SELECT count(*), sum(i), a filtered count/sum/min/max, 1,000 Zipf(k=1)
@@ -29,7 +35,9 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
 6. grouped aggregate (B2): 100M rows of t3(g INTEGER, v INTEGER), 12
    groups, a plain and a filtered GROUP BY held against numpy;
 7. timing: each kernel alone, its wrapper and its plain version at its
-   main path's shape (CUDA events), after the launch counts were read.
+   main path's shape (CUDA events), after the launch counts were read,
+   with its bound (the bytes it must move at 3.35 TB/s). No single PyTorch
+   call unpacks the vertical-lane layout, so `library_ms` is null.
 
 Each main path (4, 5, 6) runs with the launch counts set to 0 just before
 it and read just after. The last two lines are the kernels' JSON record
@@ -266,9 +274,44 @@ def _value_codes(rng, seg_rows, width):
             for n in seg_rows]
 
 
+def _ragged_rows(rng, n_seg):
+    """Row counts of n_seg segments, most of them not a multiple of a
+    128-lane tile (lanes = ceil(rows / 32))."""
+    return [int(x) for x in rng.integers(1, 65536, n_seg, endpoint=True)]
+
+
+def _grouped_edges(rng):
+    """B2 cases at the edges of the kernel's accumulation and geometry:
+    (label, seg_rows, gw, group codes, vw, value codes, gmins, vmins,
+    n_groups, ranges)."""
+    import numpy as np
+
+    M32 = 0xFFFFFFFF
+    full = [65536] * 3
+    yield ("one group, codes 0xFFFFFFFF, every row kept", full, 2,
+           [np.full(n, 3, np.uint32) for n in full], 32,
+           [np.full(n, M32, np.uint32) for n in full], [0, 0, 0],
+           [0, -(1 << 31), 1 << 30], 16, [(None, None)])
+    rows = [65536, 40000, 777]
+    yield ("16 groups across a warp", rows, 4,
+           [(np.arange(n) % 16).astype(np.uint32) for n in rows], 21,
+           _value_codes(rng, rows, 21), [0, 0, 0], [-(10**6)] * 3, 16,
+           [(None, None), (-1000, 10**6)])
+    rows = _ragged_rows(rng, 300)
+    yield ("300 ragged segments", rows, 4, _group_codes(rng, rows, 4, 12), 21,
+           _value_codes(rng, rows, 21), [0] * len(rows),
+           [-(10**6)] * len(rows), 12,
+           [(None, None), (125_000, 400_000)])
+    rows = [50001]
+    yield ("a single segment", rows, 4, _group_codes(rng, rows, 4, 12), 21,
+           _value_codes(rng, rows, 21), [0], [-(10**6)], 12,
+           [(None, None), (-5, 5000)])
+
+
 def grouped_vs_plain(dev, seg_rows=(65536, 65536, 40000, 65536 - 13, 777)):
     """Phase 3, B2: the grouped scan against its plain version on the same
-    CUDA tensors. Returns (comparisons, max_abs_err)."""
+    CUDA tensors: a sweep of widths, then the edge cases. Returns
+    (comparisons, max_abs_err, accumulator modes run)."""
     import numpy as np
     import torch
 
@@ -281,28 +324,36 @@ def grouped_vs_plain(dev, seg_rows=(65536, 65536, 40000, 65536 - 13, 777)):
     vmins = [0, -4000, 123, -(1 << 31), 1 << 30][:len(seg_rows)]
     combos = [(gw, vw) for gw in range(1, 33) for vw in (1, 7, 16, 31, 32)]
     combos += [(gw, vw) for vw in range(1, 33) for gw in (1, 3, 4)]
-    n_cmp, max_err = 0, 0
+    cases = []
     for k, (gw, vw) in enumerate(combos):
-        n_groups = (1, 6, 12, 16)[k % 4]
-        g = _pack_stack(_group_codes(rng, seg_rows, gw, n_groups), gw, L)
-        v = _pack_stack(_value_codes(rng, seg_rows, vw), vw, L)
-        g_t = torch.from_numpy(g.view(np.int32)).to(dev)
-        v_t = torch.from_numpy(v.view(np.int32)).to(dev)
         top = (1 << vw) - 1
-        ranges = [(None, None), (-3000, 123 + top // 2), (10**12, 10**13),
-                  (-(1 << 31) + top // 3, -3500)]
+        n_groups = (1, 6, 12, 16)[k % 4]
+        cases.append((f"gw {gw} vw {vw}", list(seg_rows), gw,
+                      _group_codes(rng, seg_rows, gw, n_groups), vw,
+                      _value_codes(rng, seg_rows, vw), gmins, vmins,
+                      n_groups, [(None, None), (-3000, 123 + top // 2),
+                                 (10**12, 10**13),
+                                 (-(1 << 31) + top // 3, -3500)]))
+    n_cmp, max_err, modes = 0, 0, set()
+    for case in cases + list(_grouped_edges(rng)):
+        label, rows, gw, gc, vw, vc, gm, vm, n_groups, ranges = case
+        lanes = [bitpack.lanes_for(n) for n in rows]
+        L = max(lanes)
+        g_t = torch.from_numpy(_pack_stack(gc, gw, L).view(np.int32)).to(dev)
+        v_t = torch.from_numpy(_pack_stack(vc, vw, L).view(np.int32)).to(dev)
+        modes.add(grouped_scan.prepare_grouped(
+            g_t, v_t, rows, gm, vm, n_groups, lanes=lanes)[0].private)
         for lo, hi in ranges:
-            args = (g_t, v_t, list(seg_rows), gmins, vmins, n_groups, lo, hi,
-                    lanes)
+            args = (g_t, v_t, rows, gm, vm, n_groups, lo, hi, lanes)
             got = grouped_scan.grouped_scan_table(*args)
             torch.cuda.synchronize()
             ref = grouped_scan.grouped_scan_table_reference(*args)
             max_err = max(max_err, int(np.abs(got - ref).max()))
             n_cmp += 1
             check(np.array_equal(got, ref),
-                  f"B2 gw {gw} vw {vw} G {n_groups} [{lo}, {hi}]: kernel "
+                  f"B2 {label} G {n_groups} [{lo}, {hi}]: kernel "
                   f"{got.tolist()} != plain {ref.tolist()}")
-    return n_cmp, max_err
+    return n_cmp, max_err, modes
 
 
 def _multi_case(rng, k, seg_rows, L):
@@ -350,12 +401,84 @@ def _multi_case(rng, k, seg_rows, L):
     return gst, vst, scal, n_groups, strides, monos, preds
 
 
+def _multi_edge(rng, seg_rows, gplanes, vplanes, n_groups, monos, preds,
+                g_lanes=None):
+    """One B3 case from per-plane (width, codes per segment, minimum) lists:
+    strides make a dense id over the group planes; each predicate keeps
+    most codes of its plane. A group stack may be cut to g_lanes lanes
+    (narrower than the value stacks: its missing lanes read as code 0)."""
+    import numpy as np
+
+    from adacom_tpu_torch.ops import bitpack, grouped_scan
+
+    L = max(bitpack.lanes_for(n) for n in seg_rows)
+    scal = np.zeros((len(seg_rows), grouped_scan.SCAL_COLS), np.uint32)
+    scal[:, grouped_scan._SC_COUNT] = seg_rows
+    scal[:, grouped_scan._SC_LORIG] = [bitpack.lanes_for(n) for n in seg_rows]
+    gst, strides, radix = [], [], 1
+    for j, (w, codes, gmin) in enumerate(gplanes):
+        scal[:, grouped_scan._SC_GMIN + j] = gmin
+        stack = _pack_stack(codes, w, L)
+        gst.append(stack[:, :, :g_lanes] if g_lanes else stack)
+        strides.append(radix)
+        radix *= 1 + max(int(c.max()) for c in codes) + gmin
+    vst = []
+    for p, (w, codes, vmin) in enumerate(vplanes):
+        scal[:, grouped_scan._SC_VMIN + p] = vmin
+        vst.append(_pack_stack(codes, w, L))
+    for q, p in enumerate(preds):
+        top = (1 << vplanes[p][0]) - 1
+        scal[:, grouped_scan._SC_PRED + 2 * q] = int(rng.integers(0, top // 8 + 1))
+        scal[:, grouped_scan._SC_PRED + 2 * q + 1] = top - top // 8
+    return gst, vst, scal, n_groups, strides, monos, preds
+
+
+def _multi_edges(rng):
+    """(label, B3 case) at the edges of the kernel's accumulation and
+    geometry; the 16-group, 32-monomial shapes run the warp-aggregated
+    mode, the others private slots."""
+    import numpy as np
+
+    M32 = 0xFFFFFFFF
+    full = [65536] * 2
+    one = [(2, [np.full(n, 1, np.uint32) for n in full], 2)]  # group id 3
+    top = [(32, [np.full(n, M32, np.uint32) for n in full], 0)] * 3
+    small = ((0,), (0, 1), (0, 1, 2), (2,))
+    wide = tuple(((0,), (0, 1), (0, 1, 2))[k % 3] for k in range(32))
+    yield ("one group, terms 0xFFFFFFFF, every row kept",
+           _multi_edge(rng, full, one, top, 4, small, ()))
+    yield ("one group, terms 0xFFFFFFFF, every row kept, 16 x 33",
+           _multi_edge(rng, full, one, top, 16, wide, ()))
+    rows = [65536, 40000, 777]
+    spread = [(4, [(np.arange(n) % 16).astype(np.uint32) for n in rows], 0)]
+    vals = [(w, _value_codes(rng, rows, w), vmin)
+            for w, vmin in ((32, 0), (5, 7), (13, 999), (20, 1), (1, 0),
+                            (32, 5), (7, 0), (3, 1))]
+    yield ("16 groups across a warp",
+           _multi_edge(rng, rows, spread, vals[:2], 16, ((0,), (0, 1)), (1,)))
+    monos = tuple(tuple(int(p) for p in rng.integers(0, 8, 1 + k % 3))
+                  for k in range(32))
+    yield ("16 groups across a warp, 16 x 33",
+           _multi_edge(rng, rows, spread, vals, 16, monos, (1, 2, 4)))
+    q1_monos = ((0,), (1,), (1, 2), (1, 3), (1, 2, 3), (2,))
+    for label, rows, g_lanes in (
+            ("300 ragged segments, a narrower group stack",
+             _ragged_rows(rng, 300), 1900),
+            ("a single segment", [50001], None)):
+        gp = [(2, [rng.integers(0, 3, n).astype(np.uint32) for n in rows], 0),
+              (1, [rng.integers(0, 2, n).astype(np.uint32) for n in rows], 0)]
+        vp = [(w, _value_codes(rng, rows, w), vmin)
+              for w, vmin in ((6, 1), (20, 90000), (4, 0), (4, 0), (12, 8000))]
+        yield (label, _multi_edge(rng, rows, gp, vp, 6, q1_monos, (4,),
+                                  g_lanes))
+
+
 def multi_vs_plain(dev, n_cases=56,
                    seg_rows=(65536, 40000, 777, 65536 - 13)):
     """Phase 3, B3: the multi grouped scan against its plain version on the
-    same CUDA tensors, each shape also with a segment emptied (count 0, as
-    the executor saturates an empty range). Returns (comparisons,
-    max_abs_err)."""
+    same CUDA tensors: a sweep of shapes, each also with a segment emptied
+    (count 0, as the executor saturates an empty range), then the edge
+    cases. Returns (comparisons, max_abs_err, accumulator modes run)."""
     import numpy as np
     import torch
 
@@ -363,18 +486,26 @@ def multi_vs_plain(dev, n_cases=56,
 
     rng = np.random.default_rng(0xB3)
     L = max(bitpack.lanes_for(n) for n in seg_rows)
-    n_cmp, max_err, kept = 0, 0, 0
-    for k in range(n_cases):
-        gst, vst, scal, n_groups, strides, monos, preds = \
-            _multi_case(rng, k, seg_rows, L)
+    cases = [(f"case {k}", _multi_case(rng, k, seg_rows, L))
+             for k in range(n_cases)]
+    n_sweep = len(cases)
+    cases += list(_multi_edges(rng))
+    n_cmp, max_err, kept, modes = 0, 0, 0, set()
+    for i, (label, case) in enumerate(cases):
+        gst, vst, scal, n_groups, strides, monos, preds = case
         g_t = [None if a is None else torch.from_numpy(a.view(np.int32)).to(dev)
                for a in gst]
         v_t = [None if a is None else torch.from_numpy(a.view(np.int32)).to(dev)
                for a in vst]
-        emptied = scal.copy()
-        emptied[1, grouped_scan._SC_COUNT] = 0
-        emptied[1, grouped_scan._SC_PRED:] = 0
-        for sc in (scal, emptied):
+        modes.add(grouped_scan.prepare_multi(g_t, v_t, scal, n_groups, strides,
+                                             monos, preds).private)
+        variants = [scal]
+        if i < n_sweep:
+            emptied = scal.copy()
+            emptied[1, grouped_scan._SC_COUNT] = 0
+            emptied[1, grouped_scan._SC_PRED:] = 0
+            variants.append(emptied)
+        for sc in variants:
             args = (g_t, v_t, sc, n_groups, strides, monos, preds)
             got = grouped_scan.multi_grouped_scan_table(*args)
             torch.cuda.synchronize()
@@ -383,13 +514,15 @@ def multi_vs_plain(dev, n_cases=56,
             kept += int(ref[:, -1].sum())
             n_cmp += 1
             check(np.array_equal(got, ref),
-                  f"B3 case {k} (groups {[None if a is None else a.shape[1] for a in gst]}"
+                  f"B3 {label} (groups {[None if a is None else a.shape[1] for a in gst]}"
                   f" strides {strides} values "
                   f"{[None if a is None else a.shape[1] for a in vst]} monos "
                   f"{monos} preds {preds} G {n_groups}): kernel "
                   f"{got.tolist()} != plain {ref.tolist()}")
+            if i >= n_sweep:
+                check(ref[:, -1].sum() > 0, f"B3 {label}: no row kept")
     check(kept > 0, "B3 sweep: no row passed any predicate")
-    return n_cmp, max_err
+    return n_cmp, max_err, modes
 
 
 class Recorder:
@@ -686,6 +819,49 @@ def _packed_bytes(calls, kind):
     return total
 
 
+def _bound_bytes(calls, kind):
+    """Bytes the function must move for one query: its packed words, the
+    (n_seg, 32) uint32 scalar table and the (n_groups, n_out) int64 result."""
+    total = _packed_bytes(calls, kind)
+    for args, _kw in calls:
+        n_seg = int(args[0].shape[0]) if kind == "B2" else int(args[2].shape[0])
+        n_out = 2 if kind == "B2" else len(args[5]) + 1
+        total += n_seg * 32 * 4 + int(args[5 if kind == "B2" else 3]) * n_out * 8
+    return total
+
+
+def _bound_line(nbytes, ms):
+    b = bound_ms(nbytes)
+    return (f"bound {b:.4f} ms (bytes, {nbytes} B at 3.35 TB/s), "
+            f"{nbytes / ms / 1e9 / 3.35 * 100:.1f}% of 3.35 TB/s")
+
+
+def ptxas_entries(log):
+    """(kernel, registers, spill-store bytes) for each entry function in an
+    `nvcc -Xptxas=-v` log; a grouped_scan instantiation is named
+    grouped_scan<readers, private|warp>."""
+    out = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk[:chunk.index("'")]
+        m = re.search(r"grouped_scan_kernelILi(\d+)ELb([01])E", name)
+        if m:
+            name = (f"grouped_scan<{m.group(1)}, "
+                    f"{'private' if m.group(2) == '1' else 'warp'}>")
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append((name, int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) if spill else 0))
+    return out
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+
+
+def bound_ms(nbytes):
+    """Least time to move nbytes at the card's published HBM rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -722,23 +898,20 @@ def main() -> int:
     log_path = [os.path.join(build.BUILD_DIR, f) for f in
                 os.listdir(build.BUILD_DIR)
                 if f.startswith("libadacom_kernels") and f.endswith(".log")]
-    regs, spills, grouped_regs = [], [], "n/a"
+    entries = []
     for p in log_path:
         with open(p) as f:
-            text = f.read()
-        regs += [int(x) for x in re.findall(r"Used (\d+) registers", text)]
-        spills += [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
-        m = re.search(r"grouped_scan_kernel.*?\n.*?(\d+) bytes spill stores.*?"
-                      r"\n.*?Used (\d+) registers", text)
-        if m:
-            grouped_regs = f"{m.group(2)} registers, {m.group(1)} B spilled"
+            entries += ptxas_entries(f.read())
+    regs = [e[1] for e in entries]
+    grouped = [f"{name} {r} regs {sp} B spilled" for name, r, sp in entries
+               if name.startswith("grouped_scan")]
     phase("build", t0, f"kernels {t_kern:.1f} s, native "
           f"{t_all - t_kern:.1f} s; threads/block "
           f"{lib.adacom_table_scan_threads()} (B1), "
           f"{lib.adacom_grouped_scan_threads()} (B2/B3); ptxas max registers "
           f"{max(regs) if regs else 'n/a'}, spill stores "
-          f"{sum(spills) if spills else 'n/a'} B over {len(regs)} kernels; "
-          f"grouped_scan_kernel {grouped_regs}")
+          f"{sum(e[2] for e in entries)} B over {len(regs)} kernels; "
+          f"{'; '.join(grouped)}")
 
     # ---- 3. kernels against their plain versions ------------------------
     t0 = time.perf_counter()
@@ -746,14 +919,21 @@ def main() -> int:
     phase("kernel==plain B1", t0, f"{n_cmp} comparisons over widths 1..32, "
           f"all exact (max_abs_err {b1_err})")
     t0 = time.perf_counter()
-    n_cmp, b2_err = grouped_vs_plain(dev)
+    n_cmp, b2_err, modes = grouped_vs_plain(dev)
     phase("kernel==plain B2", t0, f"{n_cmp} comparisons (group x value "
-          f"widths, 4 ranges each), all exact (max_abs_err {b2_err})")
+          f"widths, 4 ranges each; one group at maximal codes, 16 groups "
+          f"across a warp, 300 ragged segments, one segment), all exact "
+          f"(max_abs_err {b2_err})")
     t0 = time.perf_counter()
-    n_cmp, b3_err = multi_vs_plain(dev)
+    n_cmp, b3_err, b3_modes = multi_vs_plain(dev)
+    modes |= b3_modes
+    check(modes == {True, False}, f"accumulator modes run: {modes}")
     phase("kernel==plain B3", t0, f"{n_cmp} comparisons (0..6 group planes, "
-          f"1..8 value planes, 0..8 predicates), all exact (max_abs_err "
-          f"{b3_err})")
+          f"1..8 value planes, 0..8 predicates; maximal terms, 16 groups "
+          f"across a warp, 16 groups x 33 outputs, 300 ragged segments with "
+          f"a narrower stack, one segment), all exact (max_abs_err "
+          f"{b3_err}); both accumulator modes (private slots, warp "
+          f"aggregation) ran")
 
     # ---- 4. main path at 100M rows, then NULLs (B1) ----------------------
     db = att.Database(platform="cuda")
@@ -799,10 +979,12 @@ def main() -> int:
     b1_plain_ms = cuda_ms(lambda: fused_scan.scan_table_reference(
         words, counts, mins, lanes=lanes, device_out=True), 5)
     nbytes = words.numel() * 4
+    b1_bound = bound_ms(nbytes + sc.numel() * 4 + 4 * 8)
     phase("timing B1", t0, f"shape {tuple(words.shape)} ({nbytes} B): kernel "
           f"{b1_ms:.4f} ms = {nbytes / b1_ms / 1e6:.1f} GB/s; wrapper (kernel "
           f"+ epilogue) {wrapper_ms:.4f} ms; plain version "
-          f"{b1_plain_ms:.3f} ms")
+          f"{b1_plain_ms:.3f} ms; "
+          f"{_bound_line(nbytes + sc.numel() * 4 + 4 * 8, b1_ms)}")
     del words, part, segs, entries
     db.close()
     del db, con
@@ -817,11 +999,13 @@ def main() -> int:
     for q in (1, 6):
         ms, wrapper, plain, err = time_multi(tp[q]["calls"])
         b3_err = max(b3_err, err)
-        b3[q] = (ms, wrapper, plain)
         nbytes = _packed_bytes(tp[q]["calls"], "B3")
+        bb = _bound_bytes(tp[q]["calls"], "B3")
+        b3[q] = (ms, wrapper, plain, bound_ms(bb))
         print(f"[timing B3 Q{q}] {len(tp[q]['calls'])} launch(es), "
               f"{nbytes} packed B: kernel {ms:.4f} ms = "
-              f"{nbytes / ms / 1e6:.1f} GB/s; wrapper {wrapper:.4f} ms; "
+              f"{nbytes / ms / 1e6:.1f} GB/s; {_bound_line(bb, ms)}; "
+              f"wrapper {wrapper:.4f} ms; "
               f"plain version {plain:.3f} ms; hot query "
               f"{tp[q]['hot'] * 1e3:.3f} ms, host time outside the wrapper "
               f"{tp[q]['hot'] * 1e3 - wrapper:.3f} ms", flush=True)
@@ -839,9 +1023,11 @@ def main() -> int:
     b2_ms, b2_wrapper, b2_plain_ms, err = time_grouped(t3["calls"])
     b2_err = max(b2_err, err)
     nbytes = _packed_bytes(t3["calls"], "B2")
+    bb = _bound_bytes(t3["calls"], "B2")
+    b2_bound = bound_ms(bb)
     phase("timing B2", t0, f"{len(t3['calls'])} launch(es), {nbytes} packed "
           f"B: kernel {b2_ms:.4f} ms = {nbytes / b2_ms / 1e6:.1f} GB/s; "
-          f"wrapper {b2_wrapper:.4f} ms; plain version {b2_plain_ms:.3f} ms; "
+          f"{_bound_line(bb, b2_ms)}; wrapper {b2_wrapper:.4f} ms; plain version {b2_plain_ms:.3f} ms; "
           f"hot query {t3['hot'] * 1e3:.3f} ms")
     t3["db"].close()
     del t3["db"]
@@ -855,15 +1041,18 @@ def main() -> int:
          "source": "adacom_tpu_torch/csrc/table_scan.cu",
          "replaces": "adacom_tpu/ops/pallas_scan.py:227",
          "launches": b1_launches, "max_abs_err": b1_err,
-         "ms": b1_ms, "plain_ms": b1_plain_ms},
+         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
+         "bound_by": "bytes", "library_ms": None},
         {"name": "grouped_scan", "route": "cuda", "source": grouped_src,
          "replaces": "adacom_tpu/ops/pallas_scan.py:529",
          "launches": b2_launches, "max_abs_err": b2_err,
-         "ms": b2_ms, "plain_ms": b2_plain_ms},
+         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
+         "bound_by": "bytes", "library_ms": None},
         {"name": "multi_grouped_scan", "route": "cuda", "source": grouped_src,
          "replaces": "adacom_tpu/ops/pallas_scan.py:795",
          "launches": b3_launches, "max_abs_err": b3_err,
-         "ms": b3[1][0], "plain_ms": b3[1][2]},
+         "ms": b3[1][0], "plain_ms": b3[1][2], "bound_ms": b3[1][3],
+         "bound_by": "bytes", "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
