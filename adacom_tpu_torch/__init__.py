@@ -1,12 +1,12 @@
 """adacom_tpu_torch — the adaptive-compression query engine on PyTorch and
 CUDA, ported from the JAX package ``adacom_tpu`` (which stays the reference).
 
-The package keeps the JAX package's layout and module names. Its first
-slice is the compressed scan -> aggregate path: appender ingest, segment
-compaction to frame-of-reference + vertical-lane bit-packing, SQL, and the
-fused table-scan kernel (``ops/fused_scan.py``, a CUDA kernel written for
-Hopper in ``csrc/table_scan.cu``), with host-tier point lookups and a host
-aggregate for everything the kernel does not take.
+The package keeps the JAX package's layout and module names. It carries
+the compressed scan -> aggregate path: appender ingest, segment compaction
+(frame-of-reference + vertical-lane bit-packing, or a generic codec), SQL,
+the fused scan kernels written for Hopper (``csrc/*.cu``), the generic
+device path in PyTorch ops for what they decline (``exec/device_scan.py``),
+DELETE/UPDATE, host-tier point lookups and a host aggregate.
 
     import adacom_tpu_torch as att
     db = att.Database(platform="cuda")   # or "cpu"

@@ -1,6 +1,13 @@
-"""Expression compiler: bound expressions -> numpy closures.
+"""Expression compiler: bound expressions -> numpy or torch closures.
 
-Port of adacom_tpu/exec/expr.py with host (numpy) evaluation only.
+Port of adacom_tpu/exec/expr.py. A compiled expression runs on numpy
+arrays (the host tier, segment host copies) or on torch tensors (the
+generic device path, on the database's device): ``_xp`` picks the array
+module from the value, as the JAX package's picks numpy or jnp. On
+tensors, unsigned integers compute in int64 (``types.device_dtype``), and
+every literal, LUT and pattern table reaches the closure through the
+prepared arguments, which the device path moves to the device once per
+query (``device_args``).
 
 Parity with the reference ExpressionExecutor (src/execution/
 expression_executor.cpp): vectorized evaluation over column batches with
@@ -18,16 +25,160 @@ import re
 from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from adacom_tpu_torch import types as tt
 from adacom_tpu_torch.sql import bound as b
 
 
+class _TorchXP:
+    """The numpy functions the compiled expressions call, on torch tensors
+    of one device (arrays made here land on that device)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+    def zeros(self, shape, dtype):
+        return torch.zeros(tuple(shape), dtype=_tdtype(dtype),
+                           device=self.device)
+
+    def ones(self, shape, dtype):
+        return torch.ones(tuple(shape), dtype=_tdtype(dtype),
+                          device=self.device)
+
+    zeros_like = staticmethod(torch.zeros_like)
+    ones_like = staticmethod(torch.ones_like)
+    where = staticmethod(torch.where)
+    abs = staticmethod(torch.abs)
+    sign = staticmethod(torch.sign)
+    sqrt = staticmethod(torch.sqrt)
+    exp = staticmethod(torch.exp)
+    log = staticmethod(torch.log)
+    log10 = staticmethod(torch.log10)
+    log2 = staticmethod(torch.log2)
+    sin = staticmethod(torch.sin)
+    cos = staticmethod(torch.cos)
+    tan = staticmethod(torch.tan)
+    arcsin = staticmethod(torch.asin)
+    arccos = staticmethod(torch.acos)
+    arctan = staticmethod(torch.atan)
+    power = staticmethod(torch.pow)
+    arctan2 = staticmethod(torch.atan2)
+
+    @staticmethod
+    def cbrt(v):
+        return torch.sign(v) * torch.abs(v).pow(1.0 / 3.0)
+
+    @staticmethod
+    def minimum(a, bound):
+        if isinstance(bound, torch.Tensor):
+            return torch.minimum(a, bound)
+        return torch.clamp(a, max=bound)
+
+    @staticmethod
+    def clip(v, lo, hi):
+        return torch.clamp(v, lo, hi)
+
+    @staticmethod
+    def searchsorted(arr, v):
+        dt = torch.promote_types(arr.dtype, v.dtype)
+        return torch.searchsorted(arr.to(dt), v.to(dt))
+
+    @staticmethod
+    def floor(v):
+        return torch.floor(v) if v.is_floating_point() else v
+
+    @staticmethod
+    def ceil(v):
+        return torch.ceil(v) if v.is_floating_point() else v
+
+    @staticmethod
+    def trunc(v):
+        return torch.trunc(v) if v.is_floating_point() else v
+
+    @staticmethod
+    def round(v):
+        return torch.round(v) if v.is_floating_point() else v
+
+
+_TORCH_XP: dict = {}
+
+
 def _xp(v):
-    """Array module for an evaluated value. Expressions run on the host in
-    numpy in this slice of the port; the torch expression tier comes with
-    the generic device path (ROADMAP queue A)."""
+    """Array module for an evaluated value: numpy for host values (the
+    host tier never leaves numpy), the torch namespace of the tensor's
+    device for tensors."""
+    if isinstance(v, torch.Tensor):
+        xp = _TORCH_XP.get(v.device)
+        if xp is None:
+            xp = _TORCH_XP[v.device] = _TorchXP(v.device)
+        return xp
     return np
+
+
+def _tdtype(dt) -> torch.dtype:
+    return dt if isinstance(dt, torch.dtype) else tt.device_dtype(dt)
+
+
+def _cast(v, dt):
+    """``v.astype(dt)``: on a tensor, ``.to`` the device dtype of dt;
+    values without a dtype (Python strings, scalars) pass as they are."""
+    if isinstance(v, torch.Tensor):
+        return v.to(_tdtype(dt))
+    return v.astype(dt) if hasattr(v, "astype") else v
+
+
+def _is_float(v) -> bool:
+    if isinstance(v, torch.Tensor):
+        return v.is_floating_point()
+    return np.dtype(v.dtype).kind == "f"
+
+
+def _fdiv(v, d: float):
+    """v / d for a float constant d. On a tensor the divisor is a tensor on
+    v's device, which keeps it a true IEEE division (a host scalar divisor
+    may become a multiply by its reciprocal)."""
+    if isinstance(v, torch.Tensor):
+        dt = v.dtype if v.is_floating_point() else torch.float64
+        return v / torch.tensor(d, dtype=dt, device=v.device)
+    return v / d
+
+
+def _int_div(a, c, mod: bool):
+    """Integer a // c (mod: a % c), floor semantics; on tensors a zero
+    divisor gives 0, numpy's answer (torch raises on the CPU)."""
+    if not isinstance(a, torch.Tensor) and not isinstance(c, torch.Tensor):
+        return a % c if mod else a // c
+    zero = c == 0
+    safe = torch.where(zero, torch.ones_like(c), c)
+    out = torch.remainder(a, safe) if mod else \
+        torch.div(a, safe, rounding_mode="floor")
+    return torch.where(zero, torch.zeros_like(out), out)
+
+
+def _eq(a, c):
+    """a == c; two tensors compare in their promoted dtype, as numpy's
+    arrays do (torch would cast a 0-d operand to the other's dtype)."""
+    if isinstance(a, torch.Tensor) and isinstance(c, torch.Tensor) and \
+            a.dtype != c.dtype:
+        dt = torch.promote_types(a.dtype, c.dtype)
+        return a.to(dt) == c.to(dt)
+    return a == c
+
+
+def device_args(args, device: torch.device) -> tuple:
+    """Prepared arguments (numpy values, strings) -> the device tier's:
+    numpy values become tensors of their device dtype on `device`."""
+    out = []
+    for a in args:
+        if isinstance(a, (np.ndarray, np.generic)):
+            a = np.asarray(a)
+            if a.dtype.kind == "u":
+                a = a.view(np.int64) if a.dtype.itemsize == 8 else \
+                    a.astype(np.int64)
+            a = torch.from_numpy(np.array(a, copy=True)).to(device)
+        out.append(a)
+    return tuple(out)
 
 # an evaluated expression: (values array, validity bool array or None)
 EV = Tuple[Any, Optional[Any]]
@@ -114,7 +265,7 @@ class ExprCompiler:
 
             def fn(cols, args):
                 v, m = cf(cols, args)
-                return ~v.astype(np.bool_), m
+                return ~_cast(v, np.bool_), m
             return fn
 
         if isinstance(e, b.BIsNull):
@@ -150,24 +301,24 @@ class ExprCompiler:
             elif dst_ty.name == "DECIMAL" and src_ty.is_float:
                 def fn(cols, args):
                     v, m = cf(cols, args)
-                    return _xp(v).round(v * (10 ** dst_ty.scale)).astype(dst), m
+                    return _cast(_xp(v).round(v * (10 ** dst_ty.scale)), dst), m
                 return fn
             elif dst_ty.is_float and src_ty.name == "DECIMAL":
                 div = 10.0 ** src_ty.scale
 
                 def fn(cols, args):
                     v, m = cf(cols, args)
-                    return v.astype(dst) / div, m
+                    return _fdiv(_cast(v, dst), div), m
                 return fn
 
             def fn(cols, args):
                 v, m = cf(cols, args)
                 if scale_mul != 1:
-                    v = v.astype(dst) * scale_mul
+                    v = _cast(v, dst) * scale_mul
                 elif scale_div != 1:
-                    v = (v // scale_div).astype(dst)
+                    v = _cast(v // scale_div, dst)
                 else:
-                    v = v.astype(dst)
+                    v = _cast(v, dst)
                 return v, m
             return fn
 
@@ -189,9 +340,9 @@ class ExprCompiler:
                     ref = conds[0][1]
                     acc = xp.zeros(np.shape(ref), dtype=dst)
                     accm = xp.zeros(np.shape(acc), np.bool_)  # NULL else
-                acc = acc.astype(dst) if hasattr(acc, "astype") else acc
+                acc = _cast(acc, dst)
                 for cv, vv, vm in reversed(conds):
-                    acc = xp.where(cv, vv.astype(dst) if hasattr(vv, "astype") else vv, acc)
+                    acc = xp.where(cv, _cast(vv, dst), acc)
                     if accm is not None or vm is not None:
                         am = accm if accm is not None else xp.ones(np.shape(acc), np.bool_)
                         wm = vm if vm is not None else xp.ones(np.shape(acc), np.bool_)
@@ -218,7 +369,7 @@ class ExprCompiler:
                 acc = None
                 for itf in item_fns:
                     iv, im = itf(cols, args)
-                    hit = v == iv
+                    hit = _eq(v, iv)
                     acc = hit if acc is None else (acc | hit)
                 if neg:
                     acc = ~acc
@@ -233,13 +384,12 @@ class ExprCompiler:
             # is just an old-code -> new-code LUT gather
             cf = self._c(e.operand)
             lut = np.asarray(e.lut, dtype=np.uint32)
+            k = self._add_input(lambda lits: lut)
 
             def fn(cols, args):
                 v, m = cf(cols, args)
-                if isinstance(v, np.ndarray):
-                    return lut[np.minimum(v, lut.shape[0] - 1)], m
-                t = np.asarray(lut)
-                return t[np.minimum(v, t.shape[0] - 1)], m
+                t = args[k]
+                return t[_xp(v).minimum(v, t.shape[0] - 1)], m
             return fn
 
         if isinstance(e, b.BDictIntMap):
@@ -248,13 +398,12 @@ class ExprCompiler:
             lut = np.asarray(e.lut, dtype=np.int64)
             if lut.size == 0:
                 lut = np.zeros(1, dtype=np.int64)
+            k = self._add_input(lambda lits: lut)
 
             def fn(cols, args):
                 v, m = cf(cols, args)
-                if isinstance(v, np.ndarray):
-                    return lut[np.minimum(v, lut.shape[0] - 1)], m
-                t = np.asarray(lut)
-                return t[np.minimum(v, t.shape[0] - 1)], m
+                t = args[k]
+                return t[_xp(v).minimum(v, t.shape[0] - 1)], m
             return fn
 
         if isinstance(e, b.BCodeDict):
@@ -263,7 +412,7 @@ class ExprCompiler:
 
             def fn(cols, args):
                 v, m = cf(cols, args)
-                return v.astype(np.uint32), m
+                return _cast(v, np.uint32), m
             return fn
 
         if isinstance(e, b.BFunc):
@@ -293,7 +442,7 @@ class ExprCompiler:
 
                 def fn(cols, args):
                     if is_null and node.cached_value is None:
-                        return args[k], np.zeros((), np.bool_)
+                        return args[k], _xp(args[k]).zeros((), np.bool_)
                     return args[k], None
                 return fn
 
@@ -326,8 +475,11 @@ class ExprCompiler:
     # -------------- literals --------------
     def _c_literal(self, e: b.BLiteral) -> Callable:
         if e.value is None and e.param is None:
+            kv = self._add_input(lambda lits: np.zeros((), np.int32))
+            km = self._add_input(lambda lits: np.zeros((), np.bool_))
+
             def fn(cols, args):
-                return np.zeros((), np.int32), np.zeros((), np.bool_)
+                return args[kv], args[km]
             return fn
         dt = compute_dtype_of(e.ty)
         if e.param is not None:
@@ -354,12 +506,12 @@ class ExprCompiler:
             def fn(cols, args):
                 return val, None
             return fn
-        # np scalar: works as a traced constant on device AND keeps the
-        # host-tier numpy evaluation path in numpy
+        # a 0-d array: numpy in the host tier, a tensor on the device
         const = np.asarray(val, dtype=dt)
+        k = self._add_input(lambda lits: const)
 
         def fn(cols, args):
-            return const, None
+            return args[k], None
         return fn
 
     def _c_string_code(self, lit: b.BLiteral, dict_) -> Callable:
@@ -397,8 +549,8 @@ class ExprCompiler:
                     # 3VL: null unless any side is definite false
                     if lm is None and rm is None:
                         return v, None
-                    lmv = np.ones(lv.shape, np.bool_) if lm is None else lm
-                    rmv = np.ones(rv.shape, np.bool_) if rm is None else rm
+                    lmv = _xp(lv).ones(lv.shape, np.bool_) if lm is None else lm
+                    rmv = _xp(rv).ones(rv.shape, np.bool_) if rm is None else rm
                     definite_false = ((~lv) & lmv) | ((~rv) & rmv)
                     valid = (lmv & rmv) | definite_false
                     return v, valid
@@ -410,8 +562,8 @@ class ExprCompiler:
                 v = lv | rv
                 if lm is None and rm is None:
                     return v, None
-                lmv = np.ones(lv.shape, np.bool_) if lm is None else lm
-                rmv = np.ones(rv.shape, np.bool_) if rm is None else rm
+                lmv = _xp(lv).ones(lv.shape, np.bool_) if lm is None else lm
+                rmv = _xp(rv).ones(rv.shape, np.bool_) if rm is None else rm
                 definite_true = (lv & lmv) | (rv & rmv)
                 valid = (lmv & rmv) | definite_true
                 return v, valid
@@ -456,11 +608,11 @@ class ExprCompiler:
                 lv, lm = lf(cols, args)
                 rv, rm = rf(cols, args)
                 if descale:
-                    lv = lv.astype(np.float64) / ldiv if hasattr(lv, "astype") else lv / ldiv
-                    rv = rv.astype(np.float64) / rdiv if hasattr(rv, "astype") else rv / rdiv
+                    lv = _fdiv(_cast(lv, np.float64), ldiv)
+                    rv = _fdiv(_cast(rv, np.float64), rdiv)
                 else:
-                    lv = lv.astype(cdt) if hasattr(lv, "astype") else lv
-                    rv = rv.astype(cdt) if hasattr(rv, "astype") else rv
+                    lv = _cast(lv, cdt)
+                    rv = _cast(rv, cdt)
                 if op == "=":
                     v = lv == rv
                 elif op == "<>":
@@ -489,9 +641,9 @@ class ExprCompiler:
             if res_float and (l_scale or r_scale):
                 # float result: descale decimal operands up front
                 if l_scale:
-                    lv = lv.astype(np.float64) / (10.0 ** l_scale)
+                    lv = _fdiv(_cast(lv, np.float64), 10.0 ** l_scale)
                 if r_scale:
-                    rv = rv.astype(np.float64) / (10.0 ** r_scale)
+                    rv = _fdiv(_cast(rv, np.float64), 10.0 ** r_scale)
                 if op == "+":
                     return lv + rv, m
                 if op == "-":
@@ -505,25 +657,29 @@ class ExprCompiler:
             if op == "+":
                 if l_scale or r_scale:
                     s = max(l_scale, r_scale)
-                    return (lv.astype(res_dt) * (10 ** (s - l_scale))
-                            + rv.astype(res_dt) * (10 ** (s - r_scale))), m
-                return lv.astype(res_dt) + rv.astype(res_dt), m
+                    return (_cast(lv, res_dt) * (10 ** (s - l_scale))
+                            + _cast(rv, res_dt) * (10 ** (s - r_scale))), m
+                return _cast(lv, res_dt) + _cast(rv, res_dt), m
             if op == "-":
                 if l_scale or r_scale:
                     s = max(l_scale, r_scale)
-                    return (lv.astype(res_dt) * (10 ** (s - l_scale))
-                            - rv.astype(res_dt) * (10 ** (s - r_scale))), m
-                return lv.astype(res_dt) - rv.astype(res_dt), m
+                    return (_cast(lv, res_dt) * (10 ** (s - l_scale))
+                            - _cast(rv, res_dt) * (10 ** (s - r_scale))), m
+                return _cast(lv, res_dt) - _cast(rv, res_dt), m
             if op == "*":
-                return lv.astype(res_dt) * rv.astype(res_dt), m
+                return _cast(lv, res_dt) * _cast(rv, res_dt), m
             if op == "/":
                 if np.dtype(res_dt).kind == "f":
-                    ldiv = lv.astype(res_dt) / (10.0 ** l_scale)
-                    rdiv = rv.astype(res_dt) / (10.0 ** r_scale)
+                    ldiv = _fdiv(_cast(lv, res_dt), 10.0 ** l_scale)
+                    rdiv = _fdiv(_cast(rv, res_dt), 10.0 ** r_scale)
                     return ldiv / rdiv, m
-                return lv.astype(res_dt) // rv.astype(res_dt), m
+                return _int_div(_cast(lv, res_dt), _cast(rv, res_dt),
+                                mod=False), m
             if op == "%":
-                return lv.astype(res_dt) % rv.astype(res_dt), m
+                if res_float:
+                    return _cast(lv, res_dt) % _cast(rv, res_dt), m
+                return _int_div(_cast(lv, res_dt), _cast(rv, res_dt),
+                                mod=True), m
             raise NotImplementedError(op)
         return fn
 
@@ -602,14 +758,14 @@ class ExprCompiler:
         if name == "abs":
             def fn(cols, args):
                 v, m = afs[0](cols, args)
-                return np.abs(v), m
+                return _xp(v).abs(v), m
             return fn
         if name in ("floor", "ceil", "ceiling"):
-            f = np.floor if name == "floor" else np.ceil
+            f = "floor" if name == "floor" else "ceil"
 
             def fn(cols, args):
                 v, m = afs[0](cols, args)
-                return f(v), m
+                return getattr(_xp(v), f)(v), m
             return fn
         if name == "round":
             def fn(cols, args):
@@ -617,67 +773,68 @@ class ExprCompiler:
                 if len(afs) > 1:
                     d, _ = afs[1](cols, args)
                     mul = 10.0 ** d
-                    return np.round(v * mul) / mul, m
-                return np.round(v), m
+                    return _xp(v).round(v * mul) / mul, m
+                return _xp(v).round(v), m
             return fn
         if name in ("sqrt", "exp", "ln", "log10", "log2", "sin", "cos",
                     "tan", "asin", "acos", "atan", "cbrt"):
-            f = {"sqrt": np.sqrt, "exp": np.exp, "ln": np.log,
-                 "log10": np.log10, "log2": np.log2, "sin": np.sin,
-                 "cos": np.cos, "tan": np.tan, "asin": np.arcsin,
-                 "acos": np.arccos, "atan": np.arctan,
-                 "cbrt": np.cbrt}[name]
+            f = {"sqrt": "sqrt", "exp": "exp", "ln": "log",
+                 "log10": "log10", "log2": "log2", "sin": "sin",
+                 "cos": "cos", "tan": "tan", "asin": "arcsin",
+                 "acos": "arccos", "atan": "arctan",
+                 "cbrt": "cbrt"}[name]
 
             def fn(cols, args):
                 v, m = afs[0](cols, args)
-                return f(v.astype(np.float64)), m
+                return getattr(_xp(v), f)(_cast(v, np.float64)), m
             return fn
         if name in ("degrees", "radians"):
             k = 180.0 / np.pi if name == "degrees" else np.pi / 180.0
 
             def fn(cols, args):
                 v, m = afs[0](cols, args)
-                return v.astype(np.float64) * np.float64(k), m
+                return _cast(v, np.float64) * float(k), m
             return fn
         if name in ("power", "atan2"):
-            f = np.power if name == "power" else np.arctan2
+            f = "power" if name == "power" else "arctan2"
 
             def fn(cols, args):
                 x, mx = afs[0](cols, args)
                 y, my = afs[1](cols, args)
-                return (f(x.astype(np.float64), y.astype(np.float64)),
+                return (getattr(_xp(x), f)(_cast(x, np.float64),
+                                           _cast(y, np.float64)),
                         _and_mask(mx, my))
             return fn
         if name == "sign":
             def fn(cols, args):
                 v, m = afs[0](cols, args)
-                return np.sign(v).astype(np.int64), m
+                return _cast(_xp(v).sign(v), np.int64), m
             return fn
         if name == "trunc":
             def fn(cols, args):
                 v, m = afs[0](cols, args)
-                return np.trunc(v.astype(np.float64)), m
+                return _xp(v).trunc(_cast(v, np.float64)), m
             return fn
         if name == "mod":
             def fn(cols, args):
                 x, mx = afs[0](cols, args)
                 y, my = afs[1](cols, args)
                 m = _and_mask(mx, my)
-                if np.dtype(x.dtype).kind == "f" or \
-                        np.dtype(y.dtype).kind == "f":
-                    xf = x.astype(np.float64)
-                    yf = y.astype(np.float64)
-                    r = xf - np.trunc(xf / yf) * yf  # C fmod semantics
-                    bad = yf == np.float64(0.0)
+                xp = _xp(x)
+                if _is_float(x) or _is_float(y):
+                    xf = _cast(x, np.float64)
+                    yf = _cast(y, np.float64)
+                    r = xf - xp.trunc(xf / yf) * yf  # C fmod semantics
+                    bad = yf == 0.0
                 else:
-                    safe = np.where(y == 0, np.ones_like(y), y)
+                    safe = xp.where(y == 0, xp.ones_like(y), y)
                     r = x % safe
                     # % follows the divisor's sign; SQL mod follows the
                     # dividend's (truncated division)
                     fix = (r != 0) & ((r < 0) != (x < 0))
-                    r = np.where(fix, r - safe, r)
+                    r = xp.where(fix, r - safe, r)
                     bad = y == 0
-                ones = np.ones(r.shape, np.bool_)
+                ones = xp.ones(r.shape, np.bool_)
                 m2 = (ones if m is None else m) & ~bad
                 return r, m2
             return fn
@@ -695,7 +852,7 @@ class ExprCompiler:
                         pick = pick & nm
                     if m is not None:
                         pick = pick | ~m
-                    v = np.where(pick, nv.astype(v.dtype), v)
+                    v = _xp(v).where(pick, _cast(nv, v.dtype), v)
                     if m is None or nm is None:
                         m = None
                     else:
@@ -713,7 +870,7 @@ class ExprCompiler:
             def fn(cols, args):
                 v, m = afs[0](cols, args)
                 if is_ts:
-                    us = v.astype(np.int64)
+                    us = _cast(v, np.int64)
                     if part == "epoch":
                         return us // np.int64(1_000_000), m
                     if part == "hour":
@@ -724,7 +881,7 @@ class ExprCompiler:
                         return (us // np.int64(1_000_000)) % np.int64(60), m
                     days = us // np.int64(86_400_000_000)
                 else:
-                    days = v.astype(np.int64)
+                    days = _cast(v, np.int64)
                     if part in ("hour", "minute", "second"):
                         return _xp(days).zeros_like(days), m
                 if part == "epoch":
@@ -742,7 +899,7 @@ class ExprCompiler:
                                                   _xp(d).ones_like(d)) + 1
                 else:
                     out = {"year": y, "month": mo, "day": d}[part]
-                return out.astype(np.int64), m
+                return _cast(out, np.int64), m
             return fn
         if name == "date_trunc":
             # bound as date_trunc with args = [part literal, date]; the
@@ -754,7 +911,7 @@ class ExprCompiler:
                 def fn(cols, args):
                     v, m = afs[1](cols, args)
                     if is_ts:
-                        us = v.astype(np.int64)
+                        us = _cast(v, np.int64)
                         step = {"second": 1_000_000,
                                 "minute": 60_000_000,
                                 "hour": 3_600_000_000,
@@ -775,13 +932,13 @@ class ExprCompiler:
                         else:  # year
                             out = _days_from_civil(y, one, one)
                         return out * np.int64(86_400_000_000), m
-                    days = v.astype(np.int64)
+                    days = _cast(v, np.int64)
                     if part == "day":
-                        return days.astype(np.int32), m
+                        return _cast(days, np.int32), m
                     if part == "week":
                         # truncate to Monday
-                        return (days - (days + np.int64(3)) %
-                                np.int64(7)).astype(np.int32), m
+                        return _cast(days - (days + np.int64(3)) %
+                                     np.int64(7), np.int32), m
                     y, mo, d = _civil_from_days(days)
                     one = _xp(mo).ones_like(mo)
                     if part == "month":
@@ -791,7 +948,7 @@ class ExprCompiler:
                         out = _days_from_civil(y, qm, one)
                     else:  # year
                         out = _days_from_civil(y, one, one)
-                    return out.astype(np.int32), m
+                    return _cast(out, np.int32), m
                 return fn
             part = e.args[0]
             pv = str(part.value).lower() if isinstance(part, b.BLiteral) \
@@ -800,11 +957,11 @@ class ExprCompiler:
         if name == "last_day":
             def fn(cols, args):
                 v, m = afs[0](cols, args)
-                y, mo, d = _civil_from_days(v.astype(np.int64))
+                y, mo, d = _civil_from_days(_cast(v, np.int64))
                 tot = y * 12 + mo  # first of next month
                 out = _days_from_civil(tot // 12, tot % 12 + 1,
                                        _xp(d).ones_like(d)) - 1
-                return out.astype(np.int32), m
+                return _cast(out, np.int32), m
             return fn
         if name in ("date_diff_day", "date_diff_month", "date_diff_year"):
             part = name.split("_")[2]
@@ -813,8 +970,8 @@ class ExprCompiler:
                 a, ma = afs[0](cols, args)
                 c, mc = afs[1](cols, args)
                 m = _and_mask(ma, mc)
-                da = a.astype(np.int64)
-                dc = c.astype(np.int64)
+                da = _cast(a, np.int64)
+                dc = _cast(c, np.int64)
                 if part == "day":
                     return dc - da, m
                 ya, moa, _ = _civil_from_days(da)
@@ -829,12 +986,12 @@ class ExprCompiler:
                 months, _ = afs[1](cols, args)
                 days, _ = afs[2](cols, args)
                 # month arithmetic on device: convert to civil, add, rebuild
-                y, mo, d = _civil_from_days(v.astype(np.int64))
+                y, mo, d = _civil_from_days(_cast(v, np.int64))
                 tot = y * 12 + (mo - 1) + months
                 y2 = tot // 12
                 mo2 = tot % 12 + 1
                 out = _days_from_civil(y2, mo2, d) + days
-                return out.astype(np.int32), m
+                return _cast(out, np.int32), m
             return fn
         if name == "coalesce":
             def fn(cols, args):

@@ -14,8 +14,10 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from adacom_tpu_torch import types as tt
+from adacom_tpu_torch.exec.device_scan import declines
 from adacom_tpu_torch.exec.executor import Executor, Mat
 from adacom_tpu_torch.main.result import QueryResult
 from adacom_tpu_torch.sql import ast
@@ -392,11 +394,42 @@ class Connection:
         return None
 
     def _filter_row_matches(self, table_name: str, where, lits=()):
-        """Evaluate a WHERE clause per segment; yields (seg_idx, row_idx_np).
+        """Evaluate a WHERE clause on the device scan (on the host tier for
+        a scan the device path declines, as SELECT does); yields (table,
+        seg_idx, row_idx_np) per segment with matches."""
+        table = self.db.catalog.get_table(table_name)
+        table.flush()
+        get = self._bind_filter_plan(table_name, where)
+        ex = self.executor
+        if declines(get):
+            snap = ex._pin_snapshot(table)
+            candidates = ex._zonemap_candidates(get, lits, snap)
+            for i, _cols, rows in ex._host_scan_morsels(get, lits, candidates,
+                                                        snap):
+                if len(rows):
+                    yield table, i, rows
+            return
+        for ids, _counts, (mask, _cols) in ex._scan_batches(get, lits):
+            hits = torch.nonzero(mask).cpu().numpy()  # (seg in chunk, row)
+            bounds = np.searchsorted(hits[:, 0], np.arange(1, len(ids)))
+            for i, rows in zip(ids, np.split(hits[:, 1], bounds)):
+                if len(rows):
+                    yield table, i, rows
 
-        Runs on the generic device scan tier, which is not ported yet."""
-        raise SQLError("not yet ported: DELETE/UPDATE ... WHERE "
-                       "(ROADMAP queue A, host operators)")
+    def _bind_filter_plan(self, table_name, where):
+        from adacom_tpu_torch.sql import bound as b
+
+        binder = Binder(self.db.catalog, self.db.config)
+        sel = ast.SelectStmt(
+            select_list=[(ast.Star(), None)],
+            from_ref=ast.BaseTable(table_name, None),
+            where=where,
+        )
+        plan = optimize(binder.bind_select(sel), set())
+        for node in b.walk(plan):
+            if isinstance(node, b.LogicalGet):
+                return node
+        raise SQLError("internal: no scan in DML plan")
 
     def _execute_delete(self, stmt: ast.DeleteStmt, lits=()):
         table = self.db.catalog.get_table(stmt.table)

@@ -1,2 +1,3 @@
-"""Compute kernels: the bit-packing codec, the segment codec and the fused
-table scan."""
+"""Compute ops: the bit-packing and segment codecs, the generic codecs, the
+aggregation and selection ops of the generic device path, and the fused
+scan kernels' wrappers."""

@@ -195,6 +195,31 @@ def unpack_segment(packed: PackedData, compute_dtype=None) -> torch.Tensor:
     return _from_i64(v, compute_dtype)
 
 
+def decode_stack(words: Sequence[Optional[torch.Tensor]],
+                 min_factor: torch.Tensor, widths: Sequence[int],
+                 n_lanes: int) -> torch.Tensor:
+    """Batched decode of n packed segments that share one meta: the torch
+    form of the JAX package's decode_traced / decode_constant under vmap.
+
+    words: per plane an (n, width, n_lanes) int32 stack, or None where the
+    width is 0; min_factor: (n,) int64 (two's complement). Returns the
+    (n, 32 * n_lanes) int64 values, lane padding included (padding rows
+    decode to the segment's minimum). Lanes are independent, so one unpack
+    of the stacked planes decodes the whole pool."""
+    n = int(min_factor.shape[0])
+    v = None
+    for p, (w, ws) in enumerate(zip(widths, words)):
+        if w == 0:
+            continue
+        codes = bitpack.unpack(ws, width=w).reshape(n, -1)
+        codes = codes if p == 0 else codes << 32
+        v = codes if v is None else v | codes
+    if v is None:
+        v = torch.zeros((n, bitpack.ROWS * n_lanes), dtype=torch.int64,
+                        device=min_factor.device)
+    return v + min_factor.reshape(n, 1)
+
+
 def gather_segment(packed: PackedData, idx: torch.Tensor) -> torch.Tensor:
     """Random-access decode of rows `idx` (FetchRow parity, touches only the
     words containing those rows)."""

@@ -156,3 +156,14 @@ def torch_dtype(t: "LogicalType | np.dtype") -> torch.dtype:
     """torch dtype for a LogicalType (its storage dtype) or a numpy dtype."""
     dt = t.np_dtype if isinstance(t, LogicalType) else np.dtype(t)
     return TORCH_DTYPES[dt]
+
+
+def device_dtype(dt) -> torch.dtype:
+    """torch dtype in which the generic device path computes values of the
+    numpy compute dtype `dt`: unsigned integers widen to int64 (uint32
+    values exactly; uint64 as its bit pattern), since torch has no unsigned
+    arithmetic on the CPU; every other dtype maps as it is."""
+    dt = np.dtype(dt)
+    if dt.kind == "u":
+        return torch.int64
+    return TORCH_DTYPES[dt]

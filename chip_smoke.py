@@ -37,7 +37,25 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
 7. timing: each kernel alone, its wrapper and its plain version at its
    main path's shape (CUDA events), after the launch counts were read,
    with its bound (the bytes it must move at 3.35 TB/s). No single PyTorch
-   call unpacks the vertical-lane layout, so `library_ms` is null.
+   call unpacks the vertical-lane layout, so `library_ms` is null;
+8. the generic device path (PyTorch tensor ops, no kernel of its own):
+   a. every codec (constant, rle, delta, dictionary, alp) decodes on the
+      card to the host values bit for bit at 1, 4,097, 65,535 and 65,536
+      rows (whole segment, gather, a pool of two);
+   b. t4: 100M rows of (k BIGINT, r INTEGER, d INTEGER, f DOUBLE,
+      c INTEGER) compacted with compression_codec='auto' (delta, rle,
+      dictionary, alp, succinct on every segment); the ungrouped
+      aggregate over all five columns, a 1,000-group GROUP BY (also on the
+      host aggregate), a filtered aggregate, a device scan
+      (host_materialize=false) against the host tier, DELETE ... WHERE
+      and the aggregate again, all against numpy;
+   c. t1 (phase 4's table) after one adaptive policy step: count/sum over
+      plain and packed segments.
+   Each query prints its hot latency (median of 10 after a cold run), the
+   device time and kernels of one hot run (torch.profiler), its peak
+   extra device memory over the cold and hot runs, pool cache included
+   (at most 4 GiB), and the generic-path counter (device_scan.RUNS, set
+   to 0 before the cold run; it must be > 0).
 
 Each main path (4, 5, 6) runs with the launch counts set to 0 just before
 it and read just after. The last two lines are the kernels' JSON record
@@ -62,6 +80,10 @@ HOT_RUNS = 10
 TPCH_SF = 10
 T3_ROWS = 100_000_000
 T3_GROUPS = 12
+T4_ROWS = 100_000_000
+T4_GROUPS = 1000
+CODEC_COUNTS = (1, 4097, 65535, 65536)
+PEAK_EXTRA_LIMIT = 4 << 30  # the generic path's extra device memory
 # the lineitem columns TPC-H Q1 and Q6 read
 Q16_COLUMNS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
                "l_returnflag", "l_linestatus", "l_shipdate"]
@@ -862,6 +884,411 @@ def bound_ms(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+# ---- 8. the generic device path ---------------------------------------------
+
+
+def _codec_cases(n, rng):
+    """(label, codec, type name, values) of n rows for phase 8a."""
+    import numpy as np
+
+    i64_max = np.iinfo(np.int64).max
+    wrap = (np.arange(n, dtype=np.uint64) + np.uint64(i64_max - n // 2))
+    distinct = rng.integers(-10**9, 10**9, min(4096, n)).astype(np.int32)
+    return [
+        ("constant i32", "constant", "INTEGER", np.full(n, -7, np.int32)),
+        ("constant f64", "constant", "DOUBLE", np.full(n, 2.5)),
+        ("rle one run", "rle", "BIGINT", np.full(n, -(1 << 40), np.int64)),
+        ("rle run per row", "rle", "INTEGER", np.arange(n, dtype=np.int32) * 3),
+        ("delta across the int64 wrap", "delta", "BIGINT", wrap.view(np.int64)),
+        ("delta int32 walk", "delta", "INTEGER",
+         np.cumsum(rng.integers(-1000, 1000, n)).astype(np.int32)),
+        ("dictionary 2", "dictionary", "BIGINT",
+         rng.choice(np.asarray([-(1 << 50), 1 << 50], np.int64), n)),
+        ("dictionary 4096", "dictionary", "INTEGER", np.concatenate(
+            [distinct, rng.choice(distinct, n - len(distinct))])),
+        ("alp e=0", "alp", "DOUBLE",
+         rng.integers(-(1 << 40), 1 << 40, n).astype(np.float64)),
+        ("alp e=14 negative", "alp", "DOUBLE",
+         -rng.integers(1, 10**6, n) / 1e14),
+        ("alp float32", "alp", "FLOAT",
+         (rng.integers(-10**4, 10**4, n) / 100.0).astype(np.float32)),
+    ]
+
+
+def codecs_on_card(dev):
+    """Phase 8a: every codec decodes on the card to the host values, bit
+    for bit, at 1, 4,097, 65,535 and 65,536 rows: the whole segment, random
+    rows (gather), and a pool of two segments stacked; the host decode
+    (the same codec on the CPU) agrees. Returns the comparisons made."""
+    import numpy as np
+    import torch
+
+    import adacom_tpu_torch as att
+    from adacom_tpu_torch import types as tt
+    from adacom_tpu_torch.ops import codecs
+
+    cfg = att.DBConfig()
+    rng = np.random.default_rng(0xC0DEC)
+    n_cmp = 0
+    for n in CODEC_COUNTS:
+        for label, codec, tname, vals in _codec_cases(n, rng):
+            what = f"{label} at {n} rows"
+            ltype = getattr(tt, tname)
+            enc = codecs.encode(codec, vals, ltype, cfg, dev)
+            got = codecs.decode_full(enc, vals.dtype).cpu().numpy()
+            check(got.tobytes() == vals.tobytes(), f"{what}: card decode "
+                                                   f"!= host values")
+            host = codecs.encode(codec, vals, ltype, cfg, "cpu")
+            check(codecs.decode_full(host, vals.dtype).numpy().tobytes()
+                  == got.tobytes(), f"{what}: host decode != card decode")
+            idx = rng.integers(0, n, 257)
+            rows = codecs.gather(enc, torch.from_numpy(idx).to(dev))
+            check(np.array_equal(rows.cpu().numpy().astype(vals.dtype),
+                                 vals[idx]), f"{what}: gather")
+            pool = codecs.make_decoder(enc.meta, vals.dtype)(tuple(
+                torch.stack([a, a]) for a in enc.arrays))
+            check(all(np.array_equal(r[:n].cpu().numpy(), vals.astype(
+                r.cpu().numpy().dtype)) for r in pool), f"{what}: pool decode")
+            n_cmp += 4
+    return n_cmp
+
+
+def _t4_chunk(start, stop, rng, d_values):
+    import numpy as np
+
+    row = np.arange(start, stop, dtype=np.int64)
+    return {"k": row, "r": ((row // 4096) % T4_GROUPS).astype(np.int32),
+            "d": d_values[rng.integers(0, 16, stop - start)].astype(np.int32),
+            "f": np.round(rng.random(stop - start) * 1e5, 2),
+            "c": np.full(stop - start, 42, np.int32)}
+
+
+class _T4Oracle:
+    """numpy answers over t4, accumulated chunk by chunk at ingest."""
+
+    COLS = ("k", "r", "d", "f", "c")
+
+    def __init__(self, v):
+        import numpy as np
+
+        self.v = v
+        self.totals = {}       # all rows
+        self.kept = {}         # rows with k % 97 != 0
+        self.cnt = np.zeros(T4_GROUPS, np.int64)
+        self.sum_k = np.zeros(T4_GROUPS, np.int64)
+        self.sum_f = np.zeros(T4_GROUPS)
+        self.min_d = np.full(T4_GROUPS, np.iinfo(np.int32).max, np.int64)
+        self.max_f = np.full(T4_GROUPS, -np.inf)
+        self.filtered = [0, 0.0]
+        self.rows = ([], [])
+
+    @staticmethod
+    def _fold(acc, cols):
+        for c, x in cols.items():
+            s = int(x.sum()) if x.dtype.kind in "iu" else float(x.sum())
+            mn, mx = x.min(), x.max()
+            if c not in acc:
+                acc[c] = [len(x), s, mn, mx]
+            else:
+                a = acc[c]
+                a[0] += len(x)
+                a[1] += s
+                a[2], a[3] = min(a[2], mn), max(a[3], mx)
+
+    def add(self, cols):
+        import numpy as np
+
+        self._fold(self.totals, cols)
+        keep = cols["k"] % 97 != 0
+        self._fold(self.kept, {c: x[keep] for c, x in cols.items()})
+        r = cols["r"]
+        self.cnt += np.bincount(r, minlength=T4_GROUPS)
+        self.sum_k += np.bincount(r, weights=cols["k"],
+                                  minlength=T4_GROUPS).astype(np.int64)
+        self.sum_f += np.bincount(r, weights=cols["f"], minlength=T4_GROUPS)
+        # r is constant on 4096-row blocks: reduce blocks, then groups
+        full = len(r) // 4096 * 4096
+        g = r[::4096]
+        for x, acc, fn, at in ((cols["d"], self.min_d, np.min, np.minimum),
+                               (cols["f"], self.max_f, np.max, np.maximum)):
+            blocks = fn(x[:full].reshape(-1, 4096), axis=1)
+            if full < len(x):
+                blocks = np.append(blocks, fn(x[full:]))
+            at.at(acc, g, blocks)
+        m = ((cols["d"] == self.v) & (cols["k"] >= 10**7)
+             & (cols["k"] <= 6 * 10**7))
+        self.filtered[0] += int(m.sum())
+        self.filtered[1] += float(cols["f"][m].sum())
+        m = (r == 7) & (cols["d"] == self.v)
+        self.rows[0].append(cols["k"][m])
+        self.rows[1].append(cols["f"][m])
+
+    def ungrouped(self, kept=False):
+        acc = self.kept if kept else self.totals
+        out = [acc["k"][0]]
+        for c in self.COLS:
+            out += acc[c][1:]
+        return out
+
+
+def _device_profile(con, sql):
+    """Device ms, kernels and copies of one run (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        con.query(sql).fetchall()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return ms, len(dev) - len(copies), len(copies)
+
+
+def _tensor_bytes(obj):
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(_tensor_bytes(x) for x in obj)
+    return 0
+
+
+def _memory_mark(db, table):
+    """Before a query: the device bytes the database holds outside the
+    table's pool cache (the stacked decoder arguments the device tiers keep
+    between queries, which the buffer manager does not count), and the
+    bytes of resident segments; resets the peak."""
+    import torch
+
+    torch.cuda.synchronize()
+    cache = _tensor_bytes(getattr(db.catalog.get_table(table), "_pool_cache",
+                                  {}))
+    mark = (torch.cuda.memory_allocated() - cache,
+            db.buffer_manager.device_bytes)
+    torch.cuda.reset_peak_memory_stats()
+    return mark
+
+
+def _memory_read(db, table, mark):
+    """After the query's runs: (peak extra bytes: the peak above the mark,
+    so it holds the whole pool cache, earlier queries' entries included,
+    and the segments the cold run made resident; of which those segments;
+    the pool cache's bytes now)."""
+    import torch
+
+    torch.cuda.synchronize()
+    cache = _tensor_bytes(getattr(db.catalog.get_table(table), "_pool_cache",
+                                  {}))
+    return (torch.cuda.max_memory_allocated() - mark[0],
+            db.buffer_manager.device_bytes - mark[1], cache)
+
+
+def generic_query(con, name, sql, hot_runs, verify, table):
+    """One query of phase 8: a cold run, then the median of hot_runs hot
+    runs, the device time and kernels of one hot run, the peak extra device
+    memory over the cold and hot runs with the pool cache's share, and the
+    generic-path counter of the cold run (set to 0 just before it, read
+    just after; it must be > 0). Every run's answer goes through verify.
+    Returns the hot median in ms."""
+    from adacom_tpu_torch.exec import device_scan
+
+    mark = _memory_mark(con.db, table)
+    t0 = time.perf_counter()
+    device_scan.RUNS = 0
+    got = con.query(sql).fetchall()
+    t_cold = time.perf_counter() - t0
+    runs = device_scan.RUNS
+    check(runs > 0, f"{name}: the generic device path did not run")
+    verify(got)
+    hot = []
+    for _ in range(hot_runs):
+        t = time.perf_counter()
+        got = con.query(sql).fetchall()
+        hot.append(time.perf_counter() - t)
+        verify(got)
+    peak, resident, cache = _memory_read(con.db, table, mark)
+    check(peak <= PEAK_EXTRA_LIMIT, f"{name}: peak extra device memory "
+                                    f"{peak} B > {PEAK_EXTRA_LIMIT} B")
+    dev_ms, n_kern, n_copy = _device_profile(con, sql)
+    t_hot = statistics.median(hot)
+    phase(f"generic {name}", t0,
+          f"== numpy; generic runs {runs}; cold {t_cold * 1e3:.3f} ms; hot "
+          f"median of {hot_runs} {t_hot * 1e3:.3f} ms; one hot run: device "
+          f"{dev_ms:.3f} ms in {n_kern} kernels + {n_copy} copies "
+          f"(torch.profiler); peak extra device memory over the cold and "
+          f"hot runs {peak} B, holding the pool cache ({cache} B after the "
+          f"runs) and {resident} B of segments the cold run made resident")
+    return t_hot * 1e3
+
+
+def t4_path(hot_runs, n_rows=T4_ROWS, platform="cuda"):
+    """Phase 8b: t4 at 100M rows under compression_codec='auto' (k delta,
+    r rle, d dictionary, f alp, c succinct), its aggregates, a device scan
+    and a DELETE ... WHERE, every answer held against numpy."""
+    import numpy as np
+
+    import adacom_tpu_torch as att
+
+    t0 = time.perf_counter()
+    d_values = np.random.default_rng(11).integers(-10**9, 10**9, 16)
+    v = int(d_values[3])
+    oracle = _T4Oracle(v)
+    rng = np.random.default_rng(12)
+    db = att.Database(platform=platform)
+    con = db.connect()
+    con.query("CREATE TABLE t4(k BIGINT, r INTEGER, d INTEGER, f DOUBLE, "
+              "c INTEGER)")
+    app = con.appender("t4")
+    for start in range(0, n_rows, CHUNK):
+        cols = _t4_chunk(start, min(start + CHUNK, n_rows), rng, d_values)
+        oracle.add(cols)
+        app.append_columns(cols)
+    app.close()
+    t_ingest = time.perf_counter() - t0
+    t = time.perf_counter()
+    con.query("SET compression_codec='auto'")
+    db.catalog.get_column_segment_catalog().compact_all_segments()
+    t_compact = time.perf_counter() - t
+    info = con.query("PRAGMA compression_info('t4')").fetchall()
+    want_codec = {"k": "delta", "r": "rle", "d": "dictionary", "f": "alp",
+                  "c": "succinct"}
+    seen = {}
+    for _t, col, _i, codec, state, _rows, nbytes, _reads in info:
+        seen.setdefault(col, set()).add((codec, state))
+    for col, codec in want_codec.items():
+        check(seen[col] == {(codec, "packed")},
+              f"t4.{col}: codecs {seen[col]} != {{{codec}}}")
+    n_seg = sum(1 for r in info if r[1] == "k")
+    packed = sum(r[6] for r in info)
+    phase("generic t4-load", t0,
+          f"{n_rows} rows x 5 columns in {n_seg} segments each; ingest "
+          f"{t_ingest:.1f} s, compaction (auto) {t_compact:.1f} s; every "
+          f"segment: {want_codec}; {packed} B encoded vs "
+          f"{n_rows * 28} B plain")
+
+    ungrouped = ("SELECT count(*), " + ", ".join(
+        f"sum({c}), min({c}), max({c})" for c in _T4Oracle.COLS) +
+        " FROM t4")
+
+    def verify_ungrouped(got, kept=False):
+        want = oracle.ungrouped(kept)
+        check(len(got) == 1 and len(got[0]) == len(want),
+              f"ungrouped: {got}")
+        for i, (x, y) in enumerate(zip(got[0], want)):
+            if i == 10:  # sum(f): the summation order differs
+                check(_close(float(x), float(y), 1e-12),
+                      f"ungrouped sum(f): {x} != numpy {y}")
+            else:  # integers, and the float min/max, are exact
+                check(x == y, f"ungrouped [{i}]: {x} != numpy {y}")
+
+    generic_query(con, "t4 ungrouped", ungrouped, hot_runs, verify_ungrouped,
+                  "t4")
+
+    group_sql = ("SELECT r, count(*), sum(k), min(d), max(f), avg(f) "
+                 "FROM t4 GROUP BY r ORDER BY r")
+
+    def verify_grouped(got):
+        check(len(got) == np.count_nonzero(oracle.cnt),
+              f"GROUP BY r: {len(got)} groups")
+        for row in got:
+            g = int(row[0])
+            check(int(row[1]) == oracle.cnt[g]
+                  and int(row[2]) == oracle.sum_k[g]
+                  and int(row[3]) == oracle.min_d[g]
+                  and float(row[4]) == oracle.max_f[g],
+                  f"GROUP BY r, group {g}: {row}")
+            check(_close(float(row[5]), oracle.sum_f[g] / oracle.cnt[g],
+                         1e-12), f"GROUP BY r, group {g}: avg {row[5]}")
+
+    device_ms = generic_query(con, "t4 GROUP BY r (1000 groups)", group_sql,
+                              hot_runs, verify_grouped, "t4")
+    # the same query on the host aggregate (device_agg_min_rows above the
+    # row count)
+    t = time.perf_counter()
+    con.query(f"SET device_agg_min_rows={n_rows + 1}")
+    host_t = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        host = con.query(group_sql).fetchall()
+        host_t.append(time.perf_counter() - t1)
+        verify_grouped(host)
+    con.query("SET device_agg_min_rows=32000000")
+    phase("generic t4 GROUP BY r on the host aggregate", t,
+          f"== numpy; median of 3 {statistics.median(host_t) * 1e3:.3f} ms "
+          f"against {device_ms:.3f} ms on the generic device path")
+
+    filt_sql = (f"SELECT count(*), sum(f) FROM t4 WHERE d = {v} "
+                f"AND k BETWEEN 10000000 AND 60000000")
+
+    def verify_filtered(got):
+        n, s = got[0]
+        check(n == oracle.filtered[0] and (
+            s is None if n == 0 else _close(s, oracle.filtered[1], 1e-12)),
+            f"filtered: {got} != {oracle.filtered}")
+
+    generic_query(con, "t4 filtered", filt_sql, hot_runs, verify_filtered,
+                  "t4")
+
+    scan_sql = f"SELECT k, f FROM t4 WHERE r = 7 AND d = {v}"
+    want_rows = list(zip(np.concatenate(oracle.rows[0]).tolist(),
+                         np.concatenate(oracle.rows[1]).tolist()))
+    host_rows = con.query(scan_sql).fetchall()
+    check([(int(a), float(b)) for a, b in host_rows] == want_rows,
+          "host-tier scan != numpy")
+
+    def verify_scan(got):
+        check(got == host_rows, f"device scan: {len(got)} rows != host "
+                                f"tier's {len(host_rows)}")
+
+    con.query("SET host_materialize=false")
+    generic_query(con, "t4 device scan", scan_sql, hot_runs, verify_scan,
+                  "t4")
+    con.query("SET host_materialize=true")
+
+    from adacom_tpu_torch.exec import device_scan
+
+    t = time.perf_counter()
+    device_scan.RUNS = 0
+    con.query("DELETE FROM t4 WHERE k % 97 = 0")
+    check(device_scan.RUNS > 0, "DELETE ... WHERE skipped the device scan")
+    t_del = time.perf_counter() - t
+    phase("generic t4 DELETE WHERE k % 97 = 0", t,
+          f"{t_del * 1e3:.1f} ms (device scan of 5 columns)")
+    generic_query(con, "t4 ungrouped after DELETE", ungrouped, hot_runs,
+                  lambda got: verify_ungrouped(got, kept=True), "t4")
+    return db
+
+
+def adaptive_mix(db, con, n_rows, hot_runs):
+    """Phase 8c: one adaptive policy step on t1 (phase 4's table), then the
+    main path's aggregate over plain and packed segments."""
+    cat = db.catalog.get_column_segment_catalog()
+    t0 = time.perf_counter()
+    n_c, n_u = cat.compress_lowest_k_segments(0.9)
+    segs = db.catalog.get_table("t1").columns["i"].segments
+    n_plain = sum(1 for s in segs if not s.is_compacted())
+    check(0 < n_plain < len(segs), f"t1 after one policy step: {n_plain} "
+                                   f"plain of {len(segs)}")
+    phase("generic t1 policy step", t0,
+          f"compress_lowest_k_segments(0.9): {n_c} compacted, {n_u} "
+          f"uncompacted; t1: {n_plain} plain and {len(segs) - n_plain} "
+          f"packed segments")
+    want = [(n_rows, n_rows * (n_rows - 1) // 2)]
+
+    def verify(got):
+        check(got == want, f"t1 mixed count/sum: {got} != {want}")
+
+    generic_query(con, "t1 count/sum over plain + packed",
+                  "SELECT count(*), sum(i) FROM t1", hot_runs, verify,
+                  "t1")
+
+
 def main() -> int:
     import torch
 
@@ -936,8 +1363,8 @@ def main() -> int:
           f"aggregation) ran")
 
     # ---- 4. main path at 100M rows, then NULLs (B1) ----------------------
-    db = att.Database(platform="cuda")
-    con = db.connect()
+    db1 = db = att.Database(platform="cuda")
+    con1 = con = db.connect()
     fused_scan.KERNEL_LAUNCHES = 0  # count the main path's launches only
     segs = main_path(db, con, N_ROWS, HOT_RUNS, N_LOOKUPS)
     nulls(db, con, NULL_ROWS)
@@ -986,8 +1413,6 @@ def main() -> int:
           f"{b1_plain_ms:.3f} ms; "
           f"{_bound_line(nbytes + sc.numel() * 4 + 4 * 8, b1_ms)}")
     del words, part, segs, entries
-    db.close()
-    del db, con
 
     # ---- 5. TPC-H Q1 and Q6 at SF 10 (B3) ---------------------------------
     grouped_scan.MULTI_LAUNCHES = 0
@@ -1031,6 +1456,17 @@ def main() -> int:
           f"hot query {t3['hot'] * 1e3:.3f} ms")
     t3["db"].close()
     del t3["db"]
+
+    # ---- 8. the generic device path -----------------------------------------
+    t0 = time.perf_counter()
+    n_cmp = codecs_on_card(dev)
+    phase("generic codecs", t0, f"{n_cmp} comparisons (constant, rle, "
+          f"delta, dictionary, alp at {list(CODEC_COUNTS)} rows: decode, "
+          f"gather, pool of two), card == host bit for bit")
+    t4_path(HOT_RUNS).close()
+    adaptive_mix(db1, con1, N_ROWS, HOT_RUNS)
+    db1.close()
+    del db1, con1, db, con
 
     check(min(b1_launches, b2_launches, b3_launches) > 0,
           f"a kernel was not launched on its main path: B1 {b1_launches}, "
