@@ -1,7 +1,8 @@
 """TPC-H schema, synthetic data generator, and query set.
 
-Port of adacom_tpu/bench/tpch.py (numpy only; the benchmark registry comes
-with the port of the bench runner). ``generate`` draws the same random
+Port of adacom_tpu/bench/tpch.py (numpy only). Its benchmark registry
+(_register_benchmarks) comes with the port of the bench runner (ROADMAP
+queue A item 2). ``generate`` draws the same random
 stream as the JAX package's, so both packages load identical tables from
 one seed; ``generate_lineitem`` draws only what lineitem needs, which
 builds the scale-factor-10 table without the Python loops over orders,
@@ -9,7 +10,9 @@ parts and customers. Column domains follow the TPC-H spec; the dbgen RNG
 streams are not reproduced.
 
 Query texts are the TPC-H formulations (all 22 queries) restricted to the
-syntax the engine accepts (plain date strings instead of DATE literals)."""
+syntax the engine accepts (plain date strings instead of DATE literals).
+``load_into_sqlite`` and ``oracle_sql`` give a sqlite3 oracle on the same
+data (the engine-agnostic analogue of the reference's answer files)."""
 
 from __future__ import annotations
 
@@ -276,6 +279,20 @@ DDL = {
 }
 
 
+# decimal-typed columns carry scale-2 integers in the generated arrays
+_DECIMAL_COLS = {
+    "l_quantity", "l_extendedprice", "l_discount", "l_tax", "o_totalprice",
+    "c_acctbal", "s_acctbal", "p_retailprice", "ps_supplycost",
+}
+_DATE_COLS = {"l_shipdate", "l_commitdate", "l_receiptdate", "o_orderdate"}
+
+
+def _dstr(days_since_epoch: np.ndarray) -> np.ndarray:
+    """Days since 1970-01-01 -> ISO date strings."""
+    return np.datetime_as_string(
+        np.asarray(days_since_epoch, np.int64).astype("datetime64[D]"))
+
+
 def load_into_engine(con, data: dict) -> None:
     """Create and fill each table of `data` (decimal columns carry
     scale-2 integers, dates days since the epoch)."""
@@ -284,6 +301,32 @@ def load_into_engine(con, data: dict) -> None:
         app = con.appender(tname)
         app.append_columns(dict(cols))
         app.close()
+
+
+def load_into_sqlite(lite, data: dict) -> None:
+    """The same tables in a sqlite3 connection: decimals as REAL, dates
+    as ISO TEXT."""
+    for tname, cols in data.items():
+        names = list(cols)
+        decls = ", ".join(
+            f"{c} {'REAL' if c in _DECIMAL_COLS else ('TEXT' if cols[c].dtype == object or c in _DATE_COLS else 'INTEGER')}"
+            for c in names
+        )
+        lite.execute(f"CREATE TABLE {tname}({decls})")
+        arrays = []
+        for c in names:
+            v = cols[c]
+            if c in _DECIMAL_COLS:
+                arrays.append((v / 100.0).tolist())
+            elif c in _DATE_COLS:
+                arrays.append(_dstr(v).tolist())
+            else:
+                arrays.append(v.tolist())
+        lite.executemany(
+            f"INSERT INTO {tname} VALUES ({','.join('?' * len(names))})",
+            zip(*arrays),
+        )
+    lite.commit()
 
 
 QUERIES = {
@@ -552,3 +595,20 @@ GROUP BY cntrycode
 ORDER BY cntrycode
 """,
 }
+
+# sqlite-oracle variants for queries whose engine syntax sqlite lacks
+# (EXTRACT(year FROM d) -> strftime)
+ORACLE_QUERIES = {
+    qid: QUERIES[qid].replace(
+        "EXTRACT(year FROM l_shipdate)",
+        "CAST(strftime('%Y', l_shipdate) AS INTEGER)",
+    ).replace(
+        "EXTRACT(year FROM o_orderdate)",
+        "CAST(strftime('%Y', o_orderdate) AS INTEGER)",
+    )
+    for qid in (7, 8, 9)
+}
+
+
+def oracle_sql(qid: int) -> str:
+    return ORACLE_QUERIES.get(qid, QUERIES[qid])

@@ -78,6 +78,9 @@ class Catalog:
                 self.wal.log_drop_table(key)
             for iname in [n for n, i in self.indexes.items() if i.table is t]:
                 self.indexes.pop(iname)
+            cache = getattr(t, "_pool_cache", None)
+            if cache is not None:
+                cache.clear()
             for c in t.column_order:
                 col = t.columns[c]
                 for s in col.segments:

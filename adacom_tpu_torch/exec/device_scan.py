@@ -28,6 +28,8 @@ to the parallel layer (ROADMAP queue A item 13).
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import Any, List, Optional
 
 import numpy as np
@@ -131,11 +133,86 @@ def _rows(v: torch.Tensor, n: int) -> torch.Tensor:
     return v if v.dim() and v.shape[0] == n else torch.broadcast_to(v, (n,))
 
 
-def _cache_put(cache: dict, key, value) -> None:
-    """Table-level device-stack cache: a few entries, cleared when full."""
-    if len(cache) > 8:
-        cache.clear()
-    cache[key] = value
+# ======================================================================
+# the pool cache
+# ======================================================================
+
+def _tensor_bytes(obj) -> int:
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(_tensor_bytes(x) for x in obj)
+    return 0
+
+
+class PoolCache:
+    """A table's stacked decoder arguments (the pools of the generic path
+    and the stacks of kernels B1-B3), kept between queries on the segments'
+    (serial, version). Bounded in bytes by the table's encoded bytes
+    (Table.footprint_bytes) and, under a memory_limit, by what the limit
+    leaves beside the resident segments: least recently used entries go
+    first, and an entry that does not fit beside those the running
+    statement (BufferManager.statement) already used is not kept. Its
+    bytes are charged to the buffer manager (BufferManager.cache_bytes)."""
+
+    def __init__(self, table):
+        self.table = table
+        # key -> (stacked tensors, bytes, the statement that used it last),
+        # least recently used first
+        self._entries: "OrderedDict[Any, tuple]" = OrderedDict()
+        self._lock = threading.Lock()
+        self.nbytes = 0
+        self._bound = 0
+        self._bound_at = None
+
+    def _charge(self, delta: int) -> None:
+        self.nbytes += delta
+        self.table.bm.charge_cache(delta)
+
+    def bound(self) -> int:
+        n = self.table.footprint_bytes()
+        bm = self.table.bm
+        if bm.memory_limit is not None:
+            n = min(n, max(0, bm.memory_limit - bm.device_bytes))
+        return n
+
+    def get(self, key):
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None:
+                return None
+            self._entries[key] = (e[0], e[1], self.table.bm.statement)
+            self._entries.move_to_end(key)
+            return e[0]
+
+    def put(self, key, value) -> None:
+        n = _tensor_bytes(value)
+        statement = self.table.bm.statement
+        with self._lock:
+            if self.nbytes + n > self._bound and self._bound_at != statement:
+                # the table may have grown (at most once a statement: the
+                # sum walks every segment)
+                self._bound, self._bound_at = self.bound(), statement
+            while self.nbytes + n > self._bound and self._entries:
+                old = next(iter(self._entries))
+                if self._entries[old][2] == statement:
+                    break  # the rest were used by the running statement
+                self._charge(-self._entries.pop(old)[1])
+            if self.nbytes + n <= self._bound:
+                self._entries[key] = (value, n, statement)
+                self._charge(n)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._charge(-self.nbytes)
+
+
+def pool_cache(table) -> PoolCache:
+    cache = getattr(table, "_pool_cache", None)
+    if cache is None:
+        cache = table._pool_cache = PoolCache(table)
+    return cache
 
 
 # ======================================================================
@@ -323,9 +400,7 @@ class DeviceScan:
             key = (tuple(metas), n_pad, del_mask is not None)
             pools.setdefault(key, []).append((i, count, segs, arrays, del_mask))
 
-        cache = getattr(table, "_pool_cache", None)
-        if cache is None:
-            cache = table._pool_cache = {}
+        cache = pool_cache(table)
         for key, entries in pools.items():
             metas, n_pad, has_del = key
             # stacked arguments, reused while no segment of the pool
@@ -339,7 +414,7 @@ class DeviceScan:
                 stacked = (counts_t,) + tuple(
                     _stack([e[3][a] for e in entries], dev)
                     for a in range(len(entries[0][3])))
-                _cache_put(cache, stack_key, stacked)
+                cache.put(stack_key, stacked)
             counts_t, args = stacked[0], stacked[1:]
             step = max(1, CHUNK_ROWS // n_pad)
             for s0 in range(0, len(entries), step):

@@ -1,4 +1,4 @@
-"""Query executor: the compressed scan -> aggregate path.
+"""Query executor: logical plan -> the device tiers + host operators.
 
 Port of adacom_tpu/exec/executor.py (reference physical planner + pipeline
 executor, src/execution/physical_plan_generator.cpp). It carries:
@@ -7,9 +7,16 @@ executor, src/execution/physical_plan_generator.cpp). It carries:
   (CheckZonemapSegments, row_group.cpp:287), routed as the JAX package's
   (_materialize_scan): the host tier (numpy plus the native C++ filters
   over the segments' host copies) answers point lookups and, with
-  host_materialize set, every materialization; otherwise the generic
-  device path (exec/device_scan.py) decodes, filters and compacts;
-- filter, project, order, top-N and limit over materialized batches;
+  host_materialize set, every materialization; otherwise, and where a
+  host filter leaves numpy (_FallbackToDevice), the generic device path
+  (exec/device_scan.py) decodes, filters and compacts;
+- filter, project, order, top-N, limit, sample, VALUES, DISTINCT, the set
+  operations and window functions (exec/window.py) over materialized
+  batches, with the external sort and the spilled join of exec/spill.py
+  under a memory_limit;
+- joins (exec/join.py): the index join, the streamed probe, the
+  materializing hash join and cross product, and the streamed
+  join -> aggregate pipeline;
 - aggregates over a scan route as the JAX package's do
   (_aggregate_over_scan): an ungrouped sum/count/min/max over one packed
   4-byte integer column runs the fused table scan (ops/fused_scan.py,
@@ -19,13 +26,15 @@ executor, src/execution/physical_plan_generator.cpp). It carries:
   or, failing that, B3. Non-dense domains, DISTINCT and holistic
   aggregates take the host hash aggregate over a host scan; everything
   else the fused kernels decline runs on the generic device path.
+  Aggregates over a join take the streamed pipeline, else the host
+  aggregate.
 
-Plan nodes outside the slice raise ExecError("not yet ported: ...").
+Every plan node the JAX package's executor routes is routed here. Its
+SPMD paths (a mesh) belong to the parallel layer (ROADMAP queue A item 7).
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -35,43 +44,9 @@ from adacom_tpu_torch import types as tt
 from adacom_tpu_torch.ops import bitpack, fused_scan, grouped_scan
 from adacom_tpu_torch.sql import bound as b
 from adacom_tpu_torch.exec.expr import ExprCompiler, CompiledExpr, compute_dtype_of
-from adacom_tpu_torch.exec.device_scan import DeviceScan, _cache_put, declines
-
-
-# ======================================================================
-# materialized batches
-# ======================================================================
-
-
-@dataclasses.dataclass
-class Mat:
-    names: List[str]
-    types: List[tt.LogicalType]
-    dicts: List[Any]
-    cols: List[np.ndarray]
-    valids: List[Optional[np.ndarray]]
-
-    @property
-    def nrows(self) -> int:
-        return len(self.cols[0]) if self.cols else self._nrows
-
-    _nrows: int = 0
-
-    @classmethod
-    def empty_like(cls, node: b.LogicalOp) -> "Mat":
-        dicts = getattr(node, "dicts", [None] * len(node.names))
-        return cls(
-            list(node.names), list(node.types), list(dicts),
-            [np.empty(0, compute_dtype_of(t)) for t in node.types],
-            [None] * len(node.names),
-        )
-
-    def take(self, idx: np.ndarray) -> "Mat":
-        return Mat(
-            self.names, self.types, self.dicts,
-            [c[idx] for c in self.cols],
-            [None if v is None else v[idx] for v in self.valids],
-        )
+from adacom_tpu_torch.exec.device_scan import DeviceScan, declines, pool_cache
+from adacom_tpu_torch.exec.join import Join, _hash_join_pairs, _row_keys
+from adacom_tpu_torch.exec.mat import ExecError, Mat, _FallbackToDevice
 
 
 # ======================================================================
@@ -79,11 +54,7 @@ class Mat:
 # ======================================================================
 
 
-class ExecError(Exception):
-    pass
-
-
-class Executor(DeviceScan):
+class Executor(DeviceScan, Join):
     def __init__(self, database):
         self.db = database
         self.config = database.config
@@ -151,20 +122,31 @@ class Executor(DeviceScan):
     def _dispatch(self, node: b.LogicalOp, lits) -> Mat:
         if isinstance(node, b.LogicalGet):
             return self._materialize_scan(node, lits)
+        if isinstance(node, b.LogicalSample):
+            return self._exec_sample(node, lits)
+        if isinstance(node, b.LogicalValues):
+            return self._exec_values(node, lits)
         if isinstance(node, b.LogicalFilter):
             return self._exec_filter(node, lits)
         if isinstance(node, b.LogicalProject):
             return self._exec_project(node, lits)
         if isinstance(node, b.LogicalAggregate):
             return self._exec_aggregate(node, lits)
+        if isinstance(node, b.LogicalJoin):
+            return self._exec_join(node, lits)
         if isinstance(node, b.LogicalOrder):
             return self._exec_order(node, lits)
         if isinstance(node, b.LogicalTopN):
             return self._exec_topn(node, lits)
         if isinstance(node, b.LogicalLimit):
             return self._exec_limit(node, lits)
-        raise ExecError(f"not yet ported: {type(node).__name__} "
-                        "(ROADMAP queue A)")
+        if isinstance(node, b.LogicalDistinct):
+            return self._exec_distinct(node, lits)
+        if isinstance(node, b.LogicalSetOp):
+            return self._exec_setop(node, lits)
+        if isinstance(node, b.LogicalWindow):
+            return self._exec_window(node, lits)
+        raise ExecError(f"no executor for {type(node).__name__}")
 
     # ==================================================================
     # scans
@@ -243,16 +225,22 @@ class Executor(DeviceScan):
     def _materialize_scan(self, get: b.LogicalGet, lits) -> Mat:
         """Host tier for selective lookups and, with host_materialize set,
         every materialization (the output is host-resident either way);
-        otherwise the device scan. Scans the device path declines stay on
-        the host."""
+        otherwise the device scan, which also takes a host scan whose
+        filter leaves numpy. Scans the device path declines stay on the
+        host."""
         limit = self.config.host_scan_segment_limit
-        on_host = self.config.host_materialize or declines(get)
+        declined = declines(get)
+        on_host = self.config.host_materialize or declined
         if on_host or (limit and get.filters):
             snap = self._pin_snapshot(get.table)
             candidates = self._zonemap_candidates(get, lits, snap)
             if on_host or len(candidates) <= limit:
-                return self._materialize_scan_host(get, lits, candidates,
-                                                   snap)
+                try:
+                    return self._materialize_scan_host(get, lits, candidates,
+                                                       snap)
+                except _FallbackToDevice:
+                    if declined:
+                        raise
         return self._materialize_scan_device(get, lits)
 
     def _materialize_scan_host(self, get: b.LogicalGet, lits, candidates,
@@ -368,11 +356,15 @@ class Executor(DeviceScan):
                     af = get._adaptive_filter = AdaptiveFilter(get.filters)
                 rows = af.select(cols, lits)
                 if rows is None:
-                    raise ExecError("not yet ported: a filter conjunct "
-                                    "that leaves numpy")
+                    raise _FallbackToDevice()
             if rows is None:
                 if filt is not None:
-                    fv, fm = filt.fn(cols, params)
+                    try:
+                        fv, fm = filt.fn(cols, params)
+                    except Exception:
+                        raise _FallbackToDevice()
+                    if not isinstance(fv, (np.ndarray, np.generic, bool)):
+                        raise _FallbackToDevice()
                     mask = np.asarray(fv)
                     if mask.ndim == 0:
                         mask = np.full(segs[0].count, bool(mask))
@@ -447,6 +439,61 @@ class Executor(DeviceScan):
         dicts = getattr(node, "dicts", [None] * len(node.names))
         return Mat(list(node.names), list(node.types), list(dicts), cols, valids)
 
+    def _exec_sample(self, node: b.LogicalSample, lits) -> Mat:
+        """Deterministic-seed row sample (reservoir-sample parity; a
+        fixed seed keeps repeated queries and verifier variants stable,
+        and both packages sample the same rows)."""
+        mat = self._exec(node.child, lits)
+        n = mat.nrows
+        rng = np.random.default_rng(0xADAC)
+        if node.is_percent:
+            k = int(round(n * node.amount / 100.0))
+        else:
+            k = min(node.amount, n)
+        if k >= n:
+            return mat
+        idx = np.sort(rng.choice(n, size=k, replace=False))
+        out = mat.take(idx)
+        out.names = list(node.names)
+        return out
+
+    def _exec_values(self, node: b.LogicalValues, lits) -> Mat:
+        if not node.names:
+            # SELECT without FROM: one row, no columns (the JAX package
+            # returns no row here)
+            return Mat([], [], [], [], [], 1)
+        # (VALUES ...) table ref: literal rows materialize as columns
+        # (reference value_relation / expression lists)
+        cols: List[np.ndarray] = []
+        valids: List[Optional[np.ndarray]] = []
+        dicts: List[Any] = []
+        node_dicts = getattr(node, "dicts", [None] * len(node.names))
+        for ci, ty in enumerate(node.types):
+            vals = []
+            for row in node.rows:
+                ex = row[ci]
+                if not isinstance(ex, b.BLiteral):
+                    raise ExecError("VALUES cells must be literals")
+                vals.append(lits[ex.param] if ex.param is not None
+                            else ex.value)
+            mask = np.asarray([v is not None for v in vals])
+            if ty.is_string:
+                # cells are dictionary CODES (binder encoded the strings)
+                cols.append(np.asarray(
+                    [0 if v is None else int(v) for v in vals],
+                    dtype=np.uint32))
+                dicts.append(node_dicts[ci])
+            else:
+                dt = compute_dtype_of(ty)
+                scale = 10 ** ty.scale if ty.name == "DECIMAL" else 1
+                cols.append(np.asarray([
+                    0 if v is None else
+                    (int(round(float(v) * scale)) if scale != 1 else v)
+                    for v in vals]).astype(dt))
+                dicts.append(None)
+            valids.append(None if mask.all() else mask)
+        return Mat(list(node.names), list(node.types), dicts, cols, valids)
+
     # ==================================================================
     # aggregation
     # ==================================================================
@@ -456,6 +503,10 @@ class Executor(DeviceScan):
         # fused scan-aggregate fast path
         if isinstance(child, b.LogicalGet):
             return self._aggregate_over_scan(node, child, lits)
+        if isinstance(child, (b.LogicalJoin, b.LogicalProject)):
+            mat = self._try_streaming_join_agg(node, child, lits)
+            if mat is not None:
+                return mat
         mat = self._exec(child, lits)
         return self._aggregate_host(node, mat, lits)
 
@@ -740,9 +791,7 @@ class Executor(DeviceScan):
             # stacked planes per width class, reused while no segment of
             # the class changes; keyed on monotonic segment serials, which
             # (unlike id()) are never reused
-            cache = getattr(table, "_pool_cache", None)
-            if cache is None:
-                cache = table._pool_cache = {}
+            cache = pool_cache(table)
             need_minmax = any(k in ("min", "max")
                               for k, _a, _acc, _d in specs)
             for w, entries in classes.items():
@@ -760,7 +809,7 @@ class Executor(DeviceScan):
                                               for e in entries], L_pad)
                     stacked = (_stack_planes([e[0] for e in entries], L_pad),
                                vstk)
-                    _cache_put(cache, key, stacked)
+                    cache.put(key, stacked)
                 wstk, vstk = stacked
                 counts = np.asarray([e[1] for e in entries], np.int64)
                 mins = np.asarray([e[2] for e in entries], np.int64)
@@ -876,9 +925,7 @@ class Executor(DeviceScan):
                     (garr[0], varr[0], sv.count, sg._packed.min_factor,
                      sv._packed.min_factor, Lg, sg.serial, sg.version,
                      sv.serial, sv.version))
-            cache = getattr(table, "_pool_cache", None)
-            if cache is None:
-                cache = table._pool_cache = {}
+            cache = pool_cache(table)
             for (gw, vw), entries in classes.items():
                 L_pad = max(e[5] for e in entries)
                 key = ("grouped", gw, vw, L_pad,
@@ -887,7 +934,7 @@ class Executor(DeviceScan):
                 if stacked is None:
                     stacked = (_stack_planes([e[0] for e in entries], L_pad),
                                _stack_planes([e[1] for e in entries], L_pad))
-                    _cache_put(cache, key, stacked)
+                    cache.put(key, stacked)
                 gstk, vstk = stacked
                 counts = np.asarray([e[2] for e in entries], np.int64)
                 # kernel group ids are DOMAIN slots: code + (gmin - base)
@@ -1072,9 +1119,7 @@ class Executor(DeviceScan):
         kstrides = tuple(int(s) for s in strides) if grouped else ()
         launches = []
         if not empty_all:
-            cache = getattr(get.table, "_pool_cache", None)
-            if cache is None:
-                cache = get.table._pool_cache = {}
+            cache = pool_cache(get.table)
             for ckey, entries in classes.items():
                 if not any(w > 0 for _c, w in ckey):
                     # all-constant planes: no words to size the lane grid
@@ -1127,7 +1172,7 @@ class Executor(DeviceScan):
                         (gstacks if pj < n_group_planes
                          else vstacks).append(stackp)
                     stacked = (gstacks, vstacks)
-                    _cache_put(cache, stack_key, stacked)
+                    cache.put(stack_key, stacked)
                 launches.append((stacked[0], stacked[1], scal))
             # shape checks before any launch: a shape the kernel does not
             # take goes to the host tier; a failing launch raises
@@ -1282,6 +1327,46 @@ class Executor(DeviceScan):
                 raise ExecError(kind)
         return uniq, prim
 
+    def _combine_partials(self, node, specs, keys_parts, prims_parts):
+        """Merge per-morsel partials into one (uniq, prim) — the global
+        half of the local->global sink merge. Mergeable kinds only
+        (count/sum/sumsq/min/max); callers gate out distinct/holistic."""
+        ng = len(node.groups)
+        if ng == 0:
+            prim = []
+            for si, (kind, _a, acc, _d) in enumerate(specs):
+                vals = np.asarray([pp[si][0] for pp in prims_parts])
+                if kind == "min":
+                    merged = vals.min()
+                elif kind == "max":
+                    merged = vals.max()
+                else:
+                    merged = vals.sum()
+                prim.append(np.asarray([merged]))
+            return [], prim
+        keys = [np.concatenate([kp[g] for kp in keys_parts])
+                for g in range(ng)]
+        uniq, gid = _unique_rows(keys)
+        n_groups = len(uniq[0]) if uniq else 0
+        prim = []
+        for si, (kind, _a, acc, _d) in enumerate(specs):
+            v = np.concatenate([pp[si] for pp in prims_parts])
+            if kind in ("min", "max"):
+                sent = (_max_sentinel(v.dtype) if kind == "min"
+                        else _min_sentinel(v.dtype))
+                out = np.full(n_groups, sent, dtype=v.dtype)
+                ufunc = np.minimum if kind == "min" else np.maximum
+                ufunc.at(out, gid, v)
+            elif v.dtype in (np.dtype(np.int64), np.dtype(np.float64)):
+                from adacom_tpu_torch import native as _native
+
+                out = _native.group_sum(gid, v, n_groups).astype(v.dtype)
+            else:
+                out = np.zeros(n_groups, dtype=v.dtype)
+                np.add.at(out, gid, v)
+            prim.append(out)
+        return uniq, prim
+
     def _finish_agg(self, node, specs, finishers, uniq, prim) -> Mat:
         if not node.groups:
             scal = [p[0] if isinstance(p, np.ndarray) else p for p in prim]
@@ -1390,6 +1475,209 @@ class Executor(DeviceScan):
         if node.limit is not None:
             lim = int(_const_value(node.limit, lits))
         return mat.take(np.arange(off, min(off + lim, mat.nrows)))
+
+    # ==================================================================
+    # distinct / set operations
+    # ==================================================================
+
+    def _exec_distinct(self, node: b.LogicalDistinct, lits) -> Mat:
+        mat = self._exec(node.child, lits)
+        if mat.nrows == 0:
+            return mat
+        uniq_idx = _unique_row_indices(_row_identity(mat.cols, mat.valids))
+        return mat.take(np.sort(uniq_idx))
+
+    def _exec_setop(self, node: b.LogicalSetOp, lits) -> Mat:
+        """UNION / EXCEPT / INTERSECT [ALL]. Rows compare as SQL's set
+        operations compare them: a NULL equals a NULL and no value (the
+        JAX package compares the values stored under NULLs)."""
+        left = self._exec(node.left, lits)
+        right = self._exec(node.right, lits)
+        # harmonize dictionaries: right columns re-encoded into left dicts
+        rdicts = getattr(node.right, "dicts", [None] * len(right.cols))
+        rcols = []
+        for c, (lc, rc) in enumerate(zip(left.cols, right.cols)):
+            ld = left.dicts[c] if c < len(left.dicts) else None
+            if ld is not None and rdicts[c] is not None and \
+                    ld is not rdicts[c]:
+                rc = ld.encode(rdicts[c].decode(rc))
+            rcols.append(np.asarray(rc).astype(lc.dtype, copy=False))
+        if node.op == "union":
+            cols = [np.concatenate([lc, rc])
+                    for lc, rc in zip(left.cols, rcols)]
+            valids = [
+                None if lv is None and rv is None else np.concatenate([
+                    lv if lv is not None else np.ones(left.nrows, bool),
+                    rv if rv is not None else np.ones(right.nrows, bool),
+                ])
+                for lv, rv in zip(left.valids, right.valids)
+            ]
+            mat = Mat(list(node.names), list(node.types),
+                      getattr(node, "dicts", [None] * len(node.names)),
+                      cols, valids)
+            if not node.all:
+                mat = mat.take(np.sort(_unique_row_indices(
+                    _row_identity(mat.cols, mat.valids))))
+            return mat
+        # except / intersect via verified equi-join membership over the
+        # rows' identity columns (a validity column wherever either side
+        # has one)
+        both = [lv is not None or rv is not None
+                for lv, rv in zip(left.valids, right.valids)]
+        li, _ri = _hash_join_pairs(
+            _row_identity(left.cols, left.valids, both),
+            _row_identity(rcols, right.valids, both), self.config)
+        in_right = np.zeros(left.nrows, dtype=bool)
+        in_right[li] = True
+        keep = ~in_right if node.op == "except" else in_right
+        mat = left.take(np.nonzero(keep)[0])
+        if not node.all and mat.nrows:
+            mat = mat.take(np.sort(_unique_row_indices(
+                _row_identity(mat.cols, mat.valids))))
+        mat.names = list(node.names)
+        return mat
+
+    # ==================================================================
+    # window functions
+    # ==================================================================
+
+    def _exec_window(self, node: b.LogicalWindow, lits) -> Mat:
+        """Reference: PhysicalWindow (physical_window.cpp) — here one sort
+        per window (partition-major) + vectorized segmented computation
+        (exec/window.py)."""
+        mat = self._exec(node.child, lits)
+        n = mat.nrows
+        cols = list(mat.cols)
+        valids = list(mat.valids)
+        for w in node.windows:
+            if n == 0:
+                cols.append(np.empty(0, compute_dtype_of(w.ty)))
+                valids.append(None)
+                continue
+            col, valid = self._compute_window(w, mat, lits)
+            cols.append(col)
+            valids.append(valid)
+        dicts = getattr(node, "dicts", [None] * len(node.names))
+        return Mat(list(node.names), list(node.types), list(dicts), cols,
+                   valids, n)
+
+    def _compute_window(self, w: b.BoundWindow, mat: Mat, lits):
+        from adacom_tpu_torch.exec import window as W
+
+        n = mat.nrows
+        # ---- partition ids
+        if w.partitions:
+            pouts = self._eval_on_mat(w.partitions, mat, lits)
+            key_cols = []
+            for v, m in pouts:
+                a = np.asarray(v)
+                if a.ndim == 0:
+                    a = np.full(n, a)
+                if m is not None:
+                    mm = np.asarray(m)
+                    if mm.ndim == 0:
+                        mm = np.full(n, bool(mm))
+                    key_cols.append(np.where(mm, a, np.zeros((), a.dtype)))
+                    key_cols.append(mm.astype(np.uint8))
+                else:
+                    key_cols.append(a)
+            part_id = np.unique(_row_keys(key_cols), return_inverse=True)[1]
+        else:
+            part_id = np.zeros(n, np.int64)
+
+        # ---- order keys (comparable-transformed, priority order)
+        okeys = []
+        for e, desc, nulls_first in w.order_keys:
+            (v, m), = self._eval_on_mat([e], mat, lits)
+            arr = np.asarray(v)
+            if arr.ndim == 0:
+                arr = np.full(n, arr)
+            d = self._expr_dict_of(e, mat)
+            if d is not None:
+                rank = d.rank_array()
+                arr = rank[np.minimum(arr, len(rank) - 1)] if len(rank) else arr
+            if desc:
+                if arr.dtype.kind in "iu" and m is None:
+                    arr = -arr.astype(np.int64)
+                else:
+                    arr = -arr.astype(np.float64)
+            if m is not None:
+                valid = np.asarray(m)
+                nf = nulls_first if nulls_first is not None else desc
+                arr = arr.astype(np.float64)
+                arr = np.where(valid, arr, -np.inf if nf else np.inf)
+            okeys.append(arr)
+
+        sidx = np.lexsort(tuple(reversed(okeys)) + (part_id,))
+        p = part_id[sidx]
+        pos = np.arange(n, dtype=np.int64)
+        starts = W.seg_starts_of(p)
+        pstart, pend = W.expand_starts(starts, n)
+
+        if okeys:
+            new_peer = np.r_[True, p[1:] != p[:-1]]
+            for k in okeys:
+                ks = k[sidx]
+                new_peer[1:] |= ks[1:] != ks[:-1]
+            ps = np.flatnonzero(new_peer)
+            peer_start, peer_end = W.expand_starts(ps.astype(np.int64), n)
+            has_order = True
+        else:
+            peer_start, peer_end = pstart, pend
+            has_order = False
+
+        # ---- value / constant arguments
+        const_args: list = []
+        value_args: list = []
+        if w.func == "ntile":
+            const_args = [int(_const_value(w.args[0], lits))]
+        elif w.func in ("lag", "lead"):
+            value_args = [w.args[0]]
+            off = int(_const_value(w.args[1], lits)) if len(w.args) > 1 else 1
+            default = _const_value(w.args[2], lits) if len(w.args) > 2 else None
+            const_args = [off, default]
+        elif w.func == "nth_value":
+            value_args = [w.args[0]]
+            const_args = [int(_const_value(w.args[1], lits))]
+        elif w.args:
+            value_args = [w.args[0]]
+
+        args_sorted = []
+        for e in value_args:
+            (v, m), = self._eval_on_mat([e], mat, lits)
+            arr = np.asarray(v)
+            if arr.ndim == 0:
+                arr = np.full(n, arr)
+            mm = None
+            if m is not None:
+                mm = np.asarray(m)
+                if mm.ndim == 0:
+                    mm = np.full(n, bool(mm))
+                mm = mm[sidx]
+            args_sorted.append((arr[sidx], mm))
+
+        out_s, valid_s = W.compute_sorted(
+            w.func, args_sorted, w.frame, has_order,
+            pos, pstart, pend, peer_start, peer_end,
+            is_decimal_sum=(w.ty.name == "DECIMAL"), const_args=const_args,
+        )
+        # decimal average: the scaled-integer sum divides out the scale
+        if w.func == "avg" and w.args and w.args[0].ty.name == "DECIMAL":
+            out_s = out_s / (10.0 ** w.args[0].ty.scale)
+
+        out_s = np.asarray(out_s)
+        want = compute_dtype_of(w.ty)
+        if out_s.dtype != want and w.ty.name != "VARCHAR":
+            out_s = out_s.astype(want)
+        out = np.empty(n, out_s.dtype)
+        out[sidx] = out_s
+        valid = None
+        if valid_s is not None:
+            valid = np.empty(n, bool)
+            valid[sidx] = valid_s
+            if valid.all():
+                valid = None
+        return out, valid
 
 
 
@@ -1550,22 +1838,6 @@ def _zonemap_probe(f: b.BExpr, lits):
     return l.index, op, np.longdouble(val)
 
 
-def _row_keys(cols: List[np.ndarray]) -> np.ndarray:
-    """Combine row values into a single comparable key (hash; verified
-    callers tolerate the astronomically unlikely collision)."""
-    if not cols:
-        return np.zeros(0, np.uint64)
-    h = np.zeros(len(cols[0]), dtype=np.uint64)
-    for c in cols:
-        x = np.ascontiguousarray(c)
-        if x.dtype.kind == "f":
-            x = x.view(np.uint64 if x.dtype.itemsize == 8 else np.uint32)
-        x = x.astype(np.uint64)
-        h ^= (x + np.uint64(0x9E3779B97F4A7C15) + (h << np.uint64(6)) + (h >> np.uint64(2)))
-        h *= np.uint64(0xBF58476D1CE4E5B9)
-    return h
-
-
 def _hll_count(gid, vals, valid, n_groups, m: int = 64) -> np.ndarray:
     """Per-group HyperLogLog distinct estimate (reference approx_count via
     third_party/hyperloglog), 64 registers, small-range correction."""
@@ -1705,6 +1977,23 @@ def _unique_rows_exact(key_arrays: List[np.ndarray]):
     first_idx[gid[::-1]] = np.arange(n - 1, -1, -1)
     uniq_cols = [c[first_idx] for c in key_arrays]
     return uniq_cols, gid
+
+
+def _row_identity(cols, valids, with_valid=None) -> List[np.ndarray]:
+    """Columns under which two rows are the same row for DISTINCT and the
+    set operations: a NULL equals a NULL and no value. A column with a
+    validity mask (or with_valid[c] set) adds its mask, and its value slots
+    under NULLs read 0."""
+    out = []
+    for c, (col, v) in enumerate(zip(cols, valids)):
+        if v is None and not (with_valid and with_valid[c]):
+            out.append(col)
+            continue
+        if v is None:
+            v = np.ones(len(col), bool)
+        out.append(np.where(v, col, np.zeros((), col.dtype)))
+        out.append(v.astype(np.uint8))
+    return out
 
 
 def _unique_row_indices(cols: List[np.ndarray]) -> np.ndarray:

@@ -19,6 +19,7 @@ import torch
 from adacom_tpu_torch import types as tt
 from adacom_tpu_torch.exec.device_scan import declines
 from adacom_tpu_torch.exec.executor import Executor, Mat
+from adacom_tpu_torch.exec.mat import client_module
 from adacom_tpu_torch.main.result import QueryResult
 from adacom_tpu_torch.sql import ast
 from adacom_tpu_torch.catalog.catalog import CatalogException
@@ -79,19 +80,16 @@ class Connection:
     def table(self, name: str):
         """Relation API root (reference Connection::Table,
         src/main/connection.cpp): lazy composable query building."""
-        from adacom_tpu_torch.main.relation import Relation
-
+        Relation = client_module("main.relation").Relation
         self.db.catalog.get_table(name)  # existence check
         return Relation(self, f"SELECT * FROM {name}")
 
     def from_query(self, sql: str):
-        from adacom_tpu_torch.main.relation import Relation
-
-        return Relation(self, sql)
+        return client_module("main.relation").Relation(self, sql)
 
     def values(self, rows):
         """Relation over literal rows (reference Connection::Values)."""
-        from adacom_tpu_torch.main.relation import Relation
+        Relation = client_module("main.relation").Relation
 
         body = ", ".join(
             "(" + ", ".join(
@@ -115,6 +113,7 @@ class Connection:
     # ------------------------------------------------------------------
     def _execute_stmt(self, stmt, key, lits, structural, stmt_idx, sql):
         t0 = time.perf_counter()
+        self.db.buffer_manager.begin_statement()
         if isinstance(stmt, ast.SelectStmt):
             res = self._execute_select(stmt, key, lits, structural, stmt_idx, sql)
         elif isinstance(stmt, ast.CreateTableStmt):
@@ -261,12 +260,11 @@ class Connection:
             }
         res = QueryResult(mat.names, mat.types, mat.cols, mat.valids, mat.dicts)
         if self.db.config.query_verification_enabled:
-            from adacom_tpu_torch.main.verification import (VerificationError,
-                                                      verify_select)
-
+            verification = client_module("main.verification")
+            VerificationError = verification.VerificationError
             try:
-                verify_select(self, stmt, lits, res.fetchall(),
-                              sql=sql, stmt_idx=stmt_idx)
+                verification.verify_select(self, stmt, lits, res.fetchall(),
+                                           sql=sql, stmt_idx=stmt_idx)
             except VerificationError as e:
                 raise SQLError(str(e)) from e
         return res
@@ -655,8 +653,7 @@ class Connection:
     def _execute_copy(self, stmt: ast.CopyStmt, lits=()):
         """COPY t FROM/TO 'file' (reference physical_copy_from_file /
         physical_copy_to_file over the parallel CSV reader)."""
-        from adacom_tpu_torch.io import csv_io
-
+        csv_io = client_module("io.csv_io")
         opts = stmt.options or {}
         delim = str(opts.get("delimiter", opts.get("delim", ",")))
         fmt = str(opts.get("format", "")).lower()
@@ -670,14 +667,11 @@ class Connection:
             table = self.db.catalog.get_table(stmt.table)
             header = opts.get("header")
             if fmt == "parquet":
-                from adacom_tpu_torch.io import parquet_io
-
-                names, types, cols, valids = parquet_io.read_parquet(
-                    stmt.path)
+                names, types, cols, valids = client_module(
+                    "io.parquet_io").read_parquet(stmt.path)
             elif fmt == "json":
-                from adacom_tpu_torch.io import json_io
-
-                names, types, cols, valids = json_io.read_json(stmt.path)
+                names, types, cols, valids = client_module(
+                    "io.json_io").read_json(stmt.path)
             else:
                 names, types, cols, valids = csv_io.read_csv(
                     stmt.path, header=header, delim=delim)
@@ -705,8 +699,7 @@ class Connection:
         res = QueryResult(mat.names, mat.types, mat.cols, mat.valids,
                           mat.dicts)
         if fmt == "parquet":
-            from adacom_tpu_torch.io import parquet_io
-
+            parquet_io = client_module("io.parquet_io")
             cols_out, types_out = [], []
             for t, c, d in zip(res.types, res._cols, res._dicts):
                 arr = np.asarray(c)

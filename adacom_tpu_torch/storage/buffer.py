@@ -27,6 +27,12 @@ class BufferManager:
         self._lock = threading.RLock()
         # bytes currently resident on device
         self.device_bytes = 0
+        # device bytes of the tables' pool caches (exec/device_scan.py
+        # PoolCache: stacked copies of segment arrays, kept between queries)
+        self.cache_bytes = 0
+        # the number of the running statement (the pool caches keep what
+        # it has used)
+        self.statement = 0
         # AdaCom logical data-size counter (compressed footprint accounting)
         self.data_size = 0
         # LRU of resident evictable segments: segment -> tick
@@ -40,6 +46,14 @@ class BufferManager:
 
     def get_data_size(self) -> int:
         return self.data_size
+
+    def begin_statement(self) -> None:
+        with self._lock:
+            self.statement += 1
+
+    def charge_cache(self, delta: int) -> None:
+        with self._lock:
+            self.cache_bytes += delta
 
     # --- device residency ----------------------------------------------
     @property

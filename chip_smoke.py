@@ -55,11 +55,29 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    device time and kernels of one hot run (torch.profiler), its peak
    extra device memory over the cold and hot runs, pool cache included
    (at most 4 GiB), and the generic-path counter (device_scan.RUNS, set
-   to 0 before the cold run; it must be > 0).
+   to 0 before the cold run; it must be > 0). After t4's queries the pool
+   cache holds at most t4's encoded bytes;
+9. the relational path at the reference's TPC-H scale: all eight tables
+   of bench/tpch.py at scale factor 1 (~8.6M rows) in a database on the
+   card, and the same data in sqlite3 (with indexes) in a subprocess
+   started at the top of the phase, which computes every oracle answer
+   once while the engine loads and queries. All 22 queries on plain
+   segments, after compaction, and compacted with host_materialize=false
+   (the device scan feeds the joins), each equal to sqlite's; for the two
+   compacted runs each query prints its cold time, the median of 3 hot
+   runs, the device time and kernels of one hot run and its routes (the
+   streamed join, streamed aggregate and index join counters, the generic
+   path's runs, the B1/B2/B3 launches); Q1 and Q6 must launch B3. Then a
+   window query over orders, UNION/EXCEPT/INTERSECT, DISTINCT, FROM-less
+   SELECTs, (VALUES ...) joined to nation and samples, against sqlite; a
+   join and sorts under a memory_limit that makes them spill, against
+   their answers in RAM; the pool cache's bytes and the phase's peak
+   extra device memory (at most 4 GiB each).
 
-Each main path (4, 5, 6) runs with the launch counts set to 0 just before
-it and read just after. The last two lines are the kernels' JSON record
-and the result line.
+Each main path (4, 5, 6, 9) runs with the launch counts set to 0 just
+before it and read just after. The last two lines are the kernels' JSON
+record and the result line. `python3 chip_smoke.py --tpch-oracle SF` is
+phase 9's sqlite subprocess (no card needed).
 """
 
 from __future__ import annotations
@@ -1047,28 +1065,21 @@ def _device_profile(con, sql):
     return ms, len(dev) - len(copies), len(copies)
 
 
-def _tensor_bytes(obj):
-    import torch
-
-    if isinstance(obj, torch.Tensor):
-        return obj.numel() * obj.element_size()
-    if isinstance(obj, dict):
-        obj = list(obj.values())
-    if isinstance(obj, (tuple, list)):
-        return sum(_tensor_bytes(x) for x in obj)
-    return 0
+def _cache_bytes(db, table):
+    """The bytes of a table's pool cache (the stacked decoder arguments the
+    device tiers keep between queries)."""
+    cache = getattr(db.catalog.get_table(table), "_pool_cache", None)
+    return 0 if cache is None else cache.nbytes
 
 
 def _memory_mark(db, table):
     """Before a query: the device bytes the database holds outside the
-    table's pool cache (the stacked decoder arguments the device tiers keep
-    between queries, which the buffer manager does not count), and the
-    bytes of resident segments; resets the peak."""
+    table's pool cache, and the bytes of resident segments; resets the
+    peak."""
     import torch
 
     torch.cuda.synchronize()
-    cache = _tensor_bytes(getattr(db.catalog.get_table(table), "_pool_cache",
-                                  {}))
+    cache = _cache_bytes(db, table)
     mark = (torch.cuda.memory_allocated() - cache,
             db.buffer_manager.device_bytes)
     torch.cuda.reset_peak_memory_stats()
@@ -1083,8 +1094,7 @@ def _memory_read(db, table, mark):
     import torch
 
     torch.cuda.synchronize()
-    cache = _tensor_bytes(getattr(db.catalog.get_table(table), "_pool_cache",
-                                  {}))
+    cache = _cache_bytes(db, table)
     return (torch.cuda.max_memory_allocated() - mark[0],
             db.buffer_manager.device_bytes - mark[1], cache)
 
@@ -1262,6 +1272,14 @@ def t4_path(hot_runs, n_rows=T4_ROWS, platform="cuda"):
           f"{t_del * 1e3:.1f} ms (device scan of 5 columns)")
     generic_query(con, "t4 ungrouped after DELETE", ungrouped, hot_runs,
                   lambda got: verify_ungrouped(got, kept=True), "t4")
+    cache = _cache_bytes(db, "t4")
+    check(0 < cache <= packed, f"t4's pool cache holds {cache} B, more than "
+                               f"t4's {packed} B encoded")
+    check(db.buffer_manager.cache_bytes == cache,
+          f"the buffer manager counts {db.buffer_manager.cache_bytes} B of "
+          f"pool cache, the table holds {cache} B")
+    print(f"[generic t4 pool cache] {cache} B after the five queries, "
+          f"at most t4's {packed} B encoded", flush=True)
     return db
 
 
@@ -1287,6 +1305,322 @@ def adaptive_mix(db, con, n_rows, hot_runs):
     generic_query(con, "t1 count/sum over plain + packed",
                   "SELECT count(*), sum(i) FROM t1", hot_runs, verify,
                   "t1")
+
+
+# ---- 9. the relational path: TPC-H at scale factor 1 ------------------------
+
+TPCH9_SF = 1.0
+TPCH9_HOT = 3
+# the oracle's indexes: tools/verify_sf1.py's and o_custkey
+SQLITE_INDEXES = ("lineitem(l_orderkey)", "lineitem(l_partkey)",
+                  "lineitem(l_suppkey)", "orders(o_orderkey)",
+                  "orders(o_custkey)", "partsupp(ps_partkey)")
+_WINDOW = ("SELECT r, count(*), sum(s) FROM (SELECT rank() OVER "
+           "(PARTITION BY o_custkey ORDER BY o_totalprice DESC, o_orderkey) "
+           "AS r, sum(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY "
+           "o_totalprice DESC, o_orderkey) AS s FROM orders) w WHERE r <= 5 "
+           "GROUP BY r ORDER BY r")
+# name -> (engine SQL, sqlite SQL): phase 9's queries beside TPC-H's
+RELATIONAL_EXTRA = {
+    "window over orders": (_WINDOW, _WINDOW),
+    "UNION": ("SELECT c_nationkey FROM customer WHERE c_acctbal > 9900 UNION "
+              "SELECT s_nationkey FROM supplier WHERE s_acctbal < -900",) * 2,
+    "EXCEPT": ("SELECT c_nationkey FROM customer WHERE c_acctbal > 9990 "
+               "EXCEPT SELECT s_nationkey FROM supplier WHERE s_acctbal > "
+               "9000",) * 2,
+    "INTERSECT": ("SELECT c_nationkey FROM customer WHERE c_acctbal > 9990 "
+                  "INTERSECT SELECT s_nationkey FROM supplier WHERE "
+                  "s_acctbal > 9000",) * 2,
+    "DISTINCT": ("SELECT DISTINCT l_returnflag, l_linestatus, l_shipmode "
+                 "FROM lineitem",) * 2,
+    "FROM-less SELECT": ("SELECT 1, 'x'",) * 2,
+    "FROM-less scalar subquery": ("SELECT count(*) FROM lineitem WHERE "
+                                  "l_quantity > (SELECT 45)",) * 2,
+    "(VALUES ...) joined to nation": (
+        "SELECT n_name, v.col1 FROM (VALUES (0, 'a'), (7, 'b'), (24, 'c')) v "
+        "JOIN nation ON n_nationkey = v.col0",
+        "SELECT n_name, v.w FROM (SELECT 0 AS n, 'a' AS w UNION ALL SELECT "
+        "7, 'b' UNION ALL SELECT 24, 'c') v JOIN nation ON n_nationkey = v.n"),
+}
+# sample -> (table, rows it keeps of the table's rows n)
+SAMPLES = {
+    "SELECT count(*) FROM lineitem USING SAMPLE 10%":
+        ("lineitem", lambda n: int(round(n * 0.1))),
+    "SELECT count(*) FROM orders TABLESAMPLE 2 PERCENT":
+        ("orders", lambda n: int(round(n * 0.02))),
+    "SELECT count(*) FROM lineitem USING SAMPLE 1000 ROWS":
+        ("lineitem", lambda n: min(n, 1000)),
+}
+
+
+def _rows(rows):
+    """Rows as plain Python values (the comparison of tests/test_tpch.py)."""
+    out = []
+    for r in rows:
+        nr = []
+        for v in r:
+            if v is None or isinstance(v, (bool, int, float, str)):
+                nr.append(int(v) if isinstance(v, bool) else v)
+            elif hasattr(v, "dtype") and v.dtype.kind == "f":
+                nr.append(float(v))
+            elif hasattr(v, "dtype") and v.dtype.kind in "iub":
+                nr.append(int(v))
+            else:
+                nr.append(str(v))
+        out.append(nr)
+    return out
+
+
+def _sql_equal(got, exp, ordered):
+    """Floats within rel_tol=1e-9, abs_tol=1e-6 (sqlite sums REALs), all
+    else exact; rows sorted unless the query orders them."""
+    import math
+
+    if not ordered:
+        got, exp = sorted(got, key=repr), sorted(exp, key=repr)
+    if len(got) != len(exp):
+        return False
+    for g, e in zip(got, exp):
+        if len(g) != len(e):
+            return False
+        for a, b in zip(g, e):
+            if isinstance(a, float) or isinstance(b, float):
+                if a is None or b is None or not math.isclose(
+                        float(a), float(b), rel_tol=1e-9, abs_tol=1e-6):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+def tpch_oracle(sf):
+    """Phase 9's sqlite3 oracle (`python3 chip_smoke.py --tpch-oracle SF`,
+    a subprocess): the same tables from bench/tpch.py's seed, loaded into
+    sqlite with indexes; prints every answer once as one JSON object."""
+    import sqlite3
+
+    from adacom_tpu_torch.bench import tpch
+
+    t0 = time.perf_counter()
+    data = tpch.generate(sf)
+    lite = sqlite3.connect(":memory:")
+    tpch.load_into_sqlite(lite, data)
+    for i, spec in enumerate(SQLITE_INDEXES):
+        lite.execute(f"CREATE INDEX i{i} ON {spec}")
+    t_load = time.perf_counter() - t0
+    out = {"tpch": {}, "extra": {}, "seconds": {}, "counts": {
+        t: lite.execute(f"SELECT count(*) FROM {t}").fetchone()[0]
+        for t in ("lineitem", "orders")}}
+    for qid in sorted(tpch.QUERIES):
+        t = time.perf_counter()
+        out["tpch"][qid] = _rows(lite.execute(tpch.oracle_sql(qid)).fetchall())
+        out["seconds"][f"Q{qid}"] = time.perf_counter() - t
+    for name, (_sql, lite_sql) in RELATIONAL_EXTRA.items():
+        out["extra"][name] = _rows(lite.execute(lite_sql).fetchall())
+    out["seconds"]["load"] = t_load
+    out["seconds"]["total"] = time.perf_counter() - t0
+    print(json.dumps(out))
+
+
+def _launches():
+    from adacom_tpu_torch.exec import device_scan
+    from adacom_tpu_torch.ops import fused_scan, grouped_scan
+
+    return (fused_scan.KERNEL_LAUNCHES, grouped_scan.GROUPED_LAUNCHES,
+            grouped_scan.MULTI_LAUNCHES, device_scan.RUNS)
+
+
+def _routes(db, before_stats, before_launches):
+    """What one run took: the join counters' increments, the generic
+    path's runs and the B1/B2/B3 launches."""
+    after = _launches()
+    d = {k: db.dist_stats.get(k, 0) - before_stats.get(k, 0)
+         for k in ("streamed_join", "streamed_join_agg", "index_join")}
+    b1, b2, b3, runs = (a - b for a, b in zip(after, before_launches))
+    d.update(device_scan_runs=runs, B1=b1, B2=b2, B3=b3)
+    return d
+
+
+def relational_path(hot_runs, sf=TPCH9_SF, platform="cuda"):
+    """Phase 9: TPC-H at scale factor sf on the card, every answer held
+    against sqlite in a subprocess. Returns the per-query records."""
+    import numpy as np
+    import torch
+
+    import adacom_tpu_torch as att
+    from adacom_tpu_torch.bench import tpch
+    from adacom_tpu_torch.exec import spill
+
+    oracle = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tpch-oracle", str(sf)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        torch.cuda.synchronize()
+        mark = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        data = tpch.generate(sf)
+        t_gen = time.perf_counter() - t0
+        db = att.Database(platform=platform)
+        con = db.connect()
+        tpch.load_into_engine(con, data)
+        n_rows = sum(len(next(iter(c.values()))) for c in data.values())
+        del data
+        phase("relational load", t0, f"TPC-H SF {sf}: 8 tables, {n_rows} "
+              f"rows, generate {t_gen:.1f} s; sqlite oracle running in "
+              f"pid {oracle.pid}")
+
+        got = {}
+        t0 = time.perf_counter()
+        for qid in sorted(tpch.QUERIES):
+            got[("plain", qid)] = _rows(con.query(tpch.QUERIES[qid]).fetchall())
+        phase("relational plain", t0, "22 queries on plain segments")
+
+        t0 = time.perf_counter()
+        con.query("PRAGMA compact_all_segments")
+        phase("relational compact", t0, "PRAGMA compact_all_segments")
+        records = {}
+        for mode in ("compacted", "device scan"):
+            if mode == "device scan":
+                con.query("SET host_materialize=false")
+            t_mode = time.perf_counter()
+            for qid in sorted(tpch.QUERIES):
+                sql = tpch.QUERIES[qid]
+                stats, launches = dict(db.dist_stats), _launches()
+                t = time.perf_counter()
+                got[(mode, qid)] = _rows(con.query(sql).fetchall())
+                cold = time.perf_counter() - t
+                routes = _routes(db, stats, launches)
+                hot = []
+                for _ in range(hot_runs):
+                    t = time.perf_counter()
+                    again = _rows(con.query(sql).fetchall())
+                    hot.append(time.perf_counter() - t)
+                    check(again == got[(mode, qid)],
+                          f"Q{qid} [{mode}] hot run differs from cold")
+                stats, launches = dict(db.dist_stats), _launches()
+                dev_ms, n_kern, n_copy = _device_profile(con, sql)
+                profiled = _routes(db, stats, launches)
+                if n_kern + n_copy == 0 and any(
+                        profiled[k] for k in ("B1", "B2", "B3",
+                                              "device_scan_runs")):
+                    dev_ms = None  # the card ran, the profiler saw nothing
+                if qid in (1, 6):
+                    check(routes["B3"] > 0 and profiled["B3"] > 0,
+                          f"Q{qid} [{mode}] skipped B3")
+                rec = records[(mode, qid)] = dict(
+                    cold_ms=cold * 1e3, hot_ms=statistics.median(hot) * 1e3,
+                    device_ms=dev_ms, kernels=n_kern, copies=n_copy, **routes)
+                device = ("not recorded by torch.profiler" if dev_ms is None
+                          else f"{dev_ms:.3f} ms in {n_kern} kernels + "
+                               f"{n_copy} copies")
+                print(f"[relational Q{qid} {mode}] cold {rec['cold_ms']:.3f} "
+                      f"ms; hot median of {hot_runs} {rec['hot_ms']:.3f} ms; "
+                      f"one hot run: device {device} (its routes "
+                      + ", ".join(f"{k} {v}" for k, v in profiled.items()
+                                  if v) + "); cold run's routes "
+                      + ", ".join(f"{k} {v}" for k, v in routes.items()),
+                      flush=True)
+            phase(f"relational {mode}", t_mode, "22 queries: cold, hot, "
+                  "device time and routes")
+        con.query("SET host_materialize=true")
+
+        t0 = time.perf_counter()
+        for name, (sql, _lite_sql) in RELATIONAL_EXTRA.items():
+            got[("extra", name)] = _rows(con.query(sql).fetchall())
+        sampled = {sql: int(con.query(sql).fetchall()[0][0])
+                   for sql in SAMPLES}
+        phase("relational extra", t0, f"{len(RELATIONAL_EXTRA)} queries "
+              f"(window, set operations, DISTINCT, FROM-less, VALUES) and "
+              f"{len(SAMPLES)} samples")
+
+        # spills: a memory_limit under the join's pairs and the sorts' keys
+        # (16 B per lineitem row: 96 MB at SF 1)
+        t0 = time.perf_counter()
+        limit = 16 * db.catalog.get_table("lineitem").row_count()
+        spill_sql = {
+            "join": ("SELECT count(*), sum(l_quantity), sum(o_totalprice) "
+                     "FROM lineitem JOIN orders ON l_orderkey = o_orderkey",
+                     "partitioned_join_pairs"),
+            "ORDER BY": ("SELECT l_orderkey FROM lineitem ORDER BY "
+                         "l_extendedprice, l_orderkey, l_linenumber",
+                         "external_sort_indices"),
+            "top-N": ("SELECT l_orderkey, l_linenumber, l_extendedprice FROM "
+                      "lineitem ORDER BY l_extendedprice DESC, l_orderkey, "
+                      "l_linenumber LIMIT 20", "external_sort_indices"),
+        }
+        con.query("SET streaming_join_enabled=false")  # the materializing join
+        spilled = []
+        for name, (sql, routine) in spill_sql.items():
+            ram = con.query(sql)
+            ram = ram.column(0) if name == "ORDER BY" else _rows(ram.fetchall())
+            rec_spill = Recorder(spill, routine)
+            rec_spill.on = True
+            try:
+                con.query(f"PRAGMA memory_limit='{limit}'")
+                out = con.query(sql)
+                out = (out.column(0) if name == "ORDER BY"
+                       else _rows(out.fetchall()))
+            finally:
+                con.query("PRAGMA memory_limit='none'")
+                rec_spill.restore()
+            check(rec_spill.calls, f"spill {name}: {routine} did not run")
+            same = (np.array_equal(out, ram) if name == "ORDER BY"
+                    else out == ram)
+            check(same, f"spill {name}: spilled answer != in-RAM answer")
+            spilled.append(f"{name} ({routine})")
+        con.query("SET streaming_join_enabled=true")
+        phase("relational spill", t0, f"memory_limit {limit} B: {spilled} "
+              f"spilled, each == its in-RAM answer")
+
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - mark
+        cache = db.buffer_manager.cache_bytes
+
+        t0 = time.perf_counter()
+        out, err = oracle.communicate(timeout=900)
+        check(oracle.returncode == 0, f"sqlite oracle failed: {err[-2000:]}")
+        want = json.loads(out)
+        for (mode, key), rows in got.items():
+            if mode == "extra":
+                exp = want["extra"][key]
+                ordered = "ORDER BY" in RELATIONAL_EXTRA[key][0]
+            else:
+                exp = want["tpch"][str(key)]
+                ordered = "ORDER BY" in tpch.QUERIES[key]
+            check(_sql_equal(rows, exp, ordered),
+                  f"{key} [{mode}]: {rows[:3]} != sqlite {exp[:3]}")
+        for sql, n in sampled.items():
+            table, keep = SAMPLES[sql]
+            exp = keep(want["counts"][table])
+            check(n == exp, f"{sql}: {n} rows != {exp}")
+        phase("relational == sqlite", t0,
+              f"22 queries x (plain, compacted, device scan), "
+              f"{len(RELATIONAL_EXTRA)} others and {len(SAMPLES)} sample "
+              f"counts equal sqlite's; sqlite took "
+              f"{want['seconds']['total']:.1f} s (load "
+              f"{want['seconds']['load']:.1f} s, slowest query "
+              f"{max((v, k) for k, v in want['seconds'].items() if k.startswith('Q'))})")
+        check(peak <= PEAK_EXTRA_LIMIT and cache <= PEAK_EXTRA_LIMIT,
+              f"phase 9 device memory: peak extra {peak} B, pool cache "
+              f"{cache} B (limit {PEAK_EXTRA_LIMIT} B)")
+        print(f"[relational memory] pool caches {cache} B; peak extra device "
+              f"memory over the phase {peak} B; resident segments "
+              f"{db.buffer_manager.device_bytes} B", flush=True)
+        for mode in ("compacted", "device scan"):
+            tot = sum(r["hot_ms"] for (m, _q), r in records.items() if m == mode)
+            dev = [r["device_ms"] for (m, _q), r in records.items()
+                   if m == mode]
+            print(f"[relational {mode} total] 22 hot medians {tot:.3f} ms, "
+                  f"device {sum(d for d in dev if d is not None):.3f} ms "
+                  f"over the {sum(d is not None for d in dev)} queries the "
+                  f"profiler recorded", flush=True)
+        db.close()
+        return records
+    finally:
+        if oracle.poll() is None:
+            oracle.kill()
+            oracle.communicate()
 
 
 def main() -> int:
@@ -1468,6 +1802,16 @@ def main() -> int:
     db1.close()
     del db1, con1, db, con
 
+    # ---- 9. the relational path: TPC-H SF 1, against sqlite ---------------
+    t0 = time.perf_counter()
+    fused_scan.KERNEL_LAUNCHES = grouped_scan.GROUPED_LAUNCHES = 0
+    grouped_scan.MULTI_LAUNCHES = 0
+    relational_path(TPCH9_HOT)
+    phase("relational", t0, f"launches on this path: B1 "
+          f"{fused_scan.KERNEL_LAUNCHES}, B2 {grouped_scan.GROUPED_LAUNCHES}, "
+          f"B3 {grouped_scan.MULTI_LAUNCHES}")
+    check(grouped_scan.MULTI_LAUNCHES > 0, "phase 9 launched no B3")
+
     check(min(b1_launches, b2_launches, b3_launches) > 0,
           f"a kernel was not launched on its main path: B1 {b1_launches}, "
           f"B2 {b2_launches}, B3 {b3_launches}")
@@ -1496,6 +1840,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tpch-oracle"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        tpch_oracle(float(sys.argv[2]))
+        sys.exit(0)
     try:
         sys.exit(main())
     except SmokeFailure as e:
