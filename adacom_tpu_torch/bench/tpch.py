@@ -1,8 +1,8 @@
 """TPC-H schema, synthetic data generator, and query set.
 
-Port of adacom_tpu/bench/tpch.py (numpy only). Its benchmark registry
-(_register_benchmarks) comes with the port of the bench runner (ROADMAP
-queue A item 2). ``generate`` draws the same random
+Port of adacom_tpu/bench/tpch.py (numpy only), with its benchmark
+registry (``TPCH_Q01`` .. ``TPCH_Q22`` in bench/runner.py's REGISTRY, each
+database on the benchmark's platform). ``generate`` draws the same random
 stream as the JAX package's, so both packages load identical tables from
 one seed; ``generate_lineitem`` draws only what lineitem needs, which
 builds the scale-factor-10 table without the Python loops over orders,
@@ -329,6 +329,39 @@ def load_into_sqlite(lite, data: dict) -> None:
     lite.commit()
 
 
+# ---------------- benchmark registry entries ----------------
+
+
+def _register_benchmarks():
+    from adacom_tpu_torch.bench.runner import Benchmark, register
+
+    class _TPCHBase(Benchmark):
+        qid = 1
+        # reference TPC-H runs at SF1 (TPCH_runtime.txt); scale == SF
+        def load(self, state):
+            import adacom_tpu_torch as at
+
+            db = at.Database(platform=self.platform)
+            con = db.connect()
+            data = generate(sf=self.scale)
+            load_into_engine(con, data)
+            db.catalog.get_column_segment_catalog().compact_all_segments()
+            state.update(db=db, con=con)
+
+        def run(self, state):
+            state["result"] = state["con"].query(QUERIES[self.qid])
+
+        def verify(self, state):
+            return None if state["result"].row_count >= 0 else "no result"
+
+    made = []
+    for qid in sorted(QUERIES):
+        cls = type(f"TPCH_Q{qid}", (_TPCHBase,), {"qid": qid, "name": f"TPCH_Q{qid:02d}"})
+        register(cls)
+        made.append(cls)
+    return made
+
+
 QUERIES = {
     1: """
 SELECT l_returnflag, l_linestatus,
@@ -612,3 +645,6 @@ ORACLE_QUERIES = {
 
 def oracle_sql(qid: int) -> str:
     return ORACLE_QUERIES.get(qid, QUERIES[qid])
+
+
+_register_benchmarks()

@@ -72,12 +72,29 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    SELECTs, (VALUES ...) joined to nation and samples, against sqlite; a
    join and sorts under a memory_limit that makes them spill, against
    their answers in RAM; the pool cache's bytes and the phase's peak
-   extra device memory (at most 4 GiB each).
+   extra device memory (at most 4 GiB each);
+10. the benchmark surface:
+   a. roofline (tools/roofline.py), run after phase 3 so that the B1
+      timing line can give its share: the card's read and copy bandwidth
+      over 2 GiB, B1 at 64M rows of width 16 (lean and with a predicate,
+      alone and through scan_table) and the torch decode path, every
+      answer against NumPy;
+   b. bench/headline.py (the bench.py twin) at 100M rows: its JSON line,
+      every lookup run verified, the scan's answer, B1 launched >= 20 times;
+   c. the 18 [succinct] classes through the bench runner at scale 0.01,
+      one hot run each, each verified; then ZipfOverTime's lookups each
+      checked while its background compaction runs, the thread stopped;
+   d. ClickBench's 43 queries (tools/clickbench_run.py) at CB_SCALE, each
+      answer equal to sqlite's, computed in a subprocess; per query its
+      cold time, the median of 3 hot runs and the cold run's launches.
+   The sqlite oracles of phases 9 and 10d start after phase 7's timings
+   and after phase 8 respectively, so they compute while phases 8-10c run.
 
-Each main path (4, 5, 6, 9) runs with the launch counts set to 0 just
-before it and read just after. The last two lines are the kernels' JSON
-record and the result line. `python3 chip_smoke.py --tpch-oracle SF` is
-phase 9's sqlite subprocess (no card needed).
+Each main path (4, 5, 6, 9, 10b-d) runs with the launch counts set to 0
+just before it and read just after. The last two lines are the kernels'
+JSON record and the result line. `python3 chip_smoke.py --tpch-oracle SF`
+and `--clickbench-oracle SCALE` are the sqlite subprocesses (no card
+needed).
 """
 
 from __future__ import annotations
@@ -116,8 +133,13 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name, t0, detail):
-    print(f"[{name}] {detail} ({time.perf_counter() - t0:.2f} s)", flush=True)
+    now = time.perf_counter()
+    print(f"[{name}] {detail} ({now - t0:.2f} s; {now - T_START:.0f} s into "
+          f"the command)", flush=True)
 
 
 def cuda_ms(fn, iters):
@@ -1441,9 +1463,25 @@ def _routes(db, before_stats, before_launches):
     return d
 
 
-def relational_path(hot_runs, sf=TPCH9_SF, platform="cuda"):
+def start_oracle(flag, scale):
+    """One of the sqlite oracles (`python3 chip_smoke.py FLAG SCALE`) in a
+    subprocess; its JSON comes back through communicate()."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(scale)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def stop(proc):
+    """Kill a subprocess that is still running and reap it."""
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def relational_path(hot_runs, sf=TPCH9_SF, platform="cuda", oracle=None):
     """Phase 9: TPC-H at scale factor sf on the card, every answer held
-    against sqlite in a subprocess. Returns the per-query records."""
+    against sqlite in a subprocess (`oracle`, started here unless the
+    caller started it earlier). Returns the per-query records."""
     import numpy as np
     import torch
 
@@ -1451,9 +1489,8 @@ def relational_path(hot_runs, sf=TPCH9_SF, platform="cuda"):
     from adacom_tpu_torch.bench import tpch
     from adacom_tpu_torch.exec import spill
 
-    oracle = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--tpch-oracle", str(sf)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    if oracle is None:
+        oracle = start_oracle("--tpch-oracle", sf)
     try:
         torch.cuda.synchronize()
         mark = torch.cuda.memory_allocated()
@@ -1618,9 +1655,201 @@ def relational_path(hot_runs, sf=TPCH9_SF, platform="cuda"):
         db.close()
         return records
     finally:
-        if oracle.poll() is None:
-            oracle.kill()
-            oracle.communicate()
+        stop(oracle)
+
+
+# ---- 10. the benchmark surface ------------------------------------------------
+
+ROOFLINE_ROWS = 64e6
+HEADLINE_SCALE = 1.0  # bench.py's 100M rows
+SUCCINCT_SCALE = 0.01
+# ClickBench rows: 2M of the module's full 10M, cut to fit the command's
+# time limit (PERF.md §4)
+CB_SCALE = 0.2
+CB_HOT = 3
+
+
+def _zero_counts():
+    from adacom_tpu_torch.exec import device_scan
+    from adacom_tpu_torch.ops import fused_scan, grouped_scan
+
+    fused_scan.KERNEL_LAUNCHES = grouped_scan.GROUPED_LAUNCHES = 0
+    grouped_scan.MULTI_LAUNCHES = device_scan.RUNS = 0
+
+
+def _counts_line():
+    b1, b2, b3, runs = _launches()
+    return f"B1 {b1}, B2 {b2}, B3 {b3}, device_scan {runs}"
+
+
+def roofline_step(dev):
+    """Phase 10a: the card's read and copy bandwidth, B1 and the torch
+    decode path against it (tools/roofline.py, every answer against
+    NumPy). Returns its record."""
+    from adacom_tpu_torch.tools import roofline
+
+    t0 = time.perf_counter()
+    r = roofline.measure(dev, ROOFLINE_ROWS, 16, 20)
+    rd, cp = r["read"], r["copy"]
+    b1 = {k: v["kernel"] for k, v in r["b1"].items()}
+    phase("benchmark roofline", t0, f"read {rd['bytes']} B: "
+          f"{rd['events_gbps']:.1f} GB/s by events, {rd['wall_gbps']:.1f} by "
+          f"wall; copy {cp['bytes']} B read + written: "
+          f"{cp['events_gbps']:.1f} / {cp['wall_gbps']:.1f} GB/s; B1 at "
+          f"({r['segments']}, 16, 2048), {r['packed_bytes']} B: lean "
+          f"{b1['lean']['events_ms']:.4f} ms, predicate "
+          f"{b1['pred']['events_ms']:.4f} ms "
+          f"(wall {b1['pred']['wall_ms']:.4f} ms) = "
+          f"{100 * r['b1']['pred']['share_of_read']:.1f}% of the measured "
+          f"read, {100 * r['b1']['pred']['share_of_datasheet']:.1f}% of "
+          f"{roofline.DATASHEET_GBPS:.0f} GB/s; scan_table "
+          f"{r['b1']['pred']['wrapper']['events_ms']:.4f} ms; torch decode "
+          f"path {r['torch_decode']['events_ms']:.3f} ms "
+          f"({100 * r['torch_decode']['share_of_read']:.1f}% of the read); "
+          f"every answer == numpy")
+    return r
+
+
+def headline_step():
+    """Phase 10b: bench/headline.py (the bench.py twin) in this process at
+    bench.py's scale; its JSON line goes to stdout as it prints it."""
+    from adacom_tpu_torch.bench import headline
+
+    t0 = time.perf_counter()
+    os.environ.update(ADACOM_BENCH_SCALE=str(HEADLINE_SCALE),
+                      ADACOM_BENCH_RUNS="5", ADACOM_BENCH_PLATFORM="cuda")
+    _zero_counts()
+    result, checks = headline.main()
+    b1 = _launches()[0]
+    check(checks["verified_runs"] == 6, f"headline: {checks}")
+    check(checks["scan_answer"] == checks["scan_expected"],
+          f"headline scan: {checks['scan_answer']} != "
+          f"{checks['scan_expected']}")
+    check(b1 >= 20 and checks["b1_launches"] >= 20,
+          f"headline launched B1 {b1} times ({checks['b1_launches']} in the "
+          f"timed scans)")
+    mem = result["detail"]["memory"]
+    check(mem["reduction"] > 0, f"headline memory: {mem}")
+    phase("benchmark headline", t0, f"6 lookup runs verified, scan "
+          f"{checks['scan_answer']} == (n, n(n-1)/2); hot lookup mean "
+          f"{result['value']} s; scan {result['detail']['device_scan']['time_s']}"
+          f" s; launches on this path: {_counts_line()}")
+    return result
+
+
+def adaptive_lookups(scale):
+    """Phase 10c: ZipfOverTime's lookups, each checked, while its
+    background compaction runs on the card; the thread must act during
+    them and stop at cleanup."""
+    import threading
+
+    from adacom_tpu_torch.bench import succinct_benchmarks as sb
+
+    t0 = time.perf_counter()
+    b, state = sb.ZipfOverTime(scale, "cuda"), {}
+    b.load(state)
+    try:
+        con, n = state["con"], state["n"]
+        cat = state["db"].catalog.get_column_segment_catalog()
+        check(cat.background_compaction_enabled, "no background compaction")
+        rounds = cat.policy_rounds
+        for v in state["data"]:
+            got = con.query(f"SELECT i FROM t1 WHERE i == {int(v)}").fetchall()
+            check(got == ([(int(v),)] if v < n else []),
+                  f"lookup {v} under compaction: {got}")
+        rounds = cat.policy_rounds - rounds
+    finally:
+        b.cleanup(state)
+    alive = [t.name for t in threading.enumerate()
+             if t.name == "adacom-compaction"]
+    check(rounds > 0, "the compaction thread made no policy step")
+    check(not alive, f"compaction threads still running: {alive}")
+    phase("succinct compaction", t0, f"{len(state['data'])} lookups correct "
+          f"while the background thread made {rounds} policy steps; the "
+          f"thread stopped")
+
+
+def succinct_step(scale):
+    """Phase 10c: every [succinct] class through the bench runner on the
+    card, one hot run each, every verify passing."""
+    import io
+    import threading
+
+    from adacom_tpu_torch.bench import runner, succinct_benchmarks
+
+    t0 = time.perf_counter()
+    names = [n for n, c in runner.REGISTRY.items()
+             if c.__module__ == succinct_benchmarks.__name__]
+    check(len(names) == 18, f"succinct group: {names}")
+    rows = []
+    for name in names:
+        t = time.perf_counter()
+        _zero_counts()
+        log = io.StringIO()
+        recs = runner.run_benchmark(runner.REGISTRY[name], scale=scale,
+                                    nruns=1, log=log, platform="cuda")
+        check(len(recs) == 1, f"{name}: {recs}")
+        tsv = [ln for ln in log.getvalue().splitlines()
+               if ln.startswith(name + "\t")]
+        rows.append(tsv[0])
+        print(f"[succinct {name}] {tsv[0]!r} verified; "
+              f"{time.perf_counter() - t:.2f} s with load; launches "
+              f"{_counts_line()}", flush=True)
+    alive = [t.name for t in threading.enumerate()
+             if t.name == "adacom-compaction"]
+    check(not alive, f"compaction threads still running: {alive}")
+    phase("succinct", t0, f"{len(rows)} [succinct] benchmarks at scale "
+          f"{scale}, each verified; no compaction thread left")
+    adaptive_lookups(scale)
+
+
+def clickbench_oracle(scale):
+    """Phase 10d's sqlite3 oracle (`python3 chip_smoke.py
+    --clickbench-oracle SCALE`, a subprocess): every answer as JSON."""
+    from adacom_tpu_torch.bench import clickbench as cb
+
+    print(json.dumps(cb.sqlite_answers(scale)))
+
+
+def clickbench_step(oracle, scale):
+    """Phase 10d: tools/clickbench_run.run on the card, every answer equal
+    to sqlite's (computed by `oracle`, a subprocess started earlier)."""
+    from adacom_tpu_torch.tools import clickbench_run
+
+    t0 = time.perf_counter()
+    want = {}
+
+    def answers(qid):
+        if not want:
+            t = time.perf_counter()
+            out, err = oracle.communicate(timeout=900)
+            check(oracle.returncode == 0,
+                  f"ClickBench oracle failed: {err[-2000:]}")
+            want.update(json.loads(out))
+            want["waited_s"] = time.perf_counter() - t
+        return want["answers"][str(qid)]
+
+    _zero_counts()
+    with open(os.devnull, "w") as quiet:
+        res = clickbench_run.run(scale, CB_HOT, "cuda", answers, log=quiet)
+    for qid, q in res["queries"].items():
+        print(f"[clickbench Q{qid:02d}] cold {q['cold_ms']:.3f} ms; hot "
+              f"median of {CB_HOT} {q['median_ms']:.3f} ms; cold run's "
+              f"launches " + ", ".join(f"{k} {v}"
+                                       for k, v in q["launches"].items())
+              + "; == sqlite", flush=True)
+    tot = sum(q["median_ms"] for q in res["queries"].values())
+    slow = sorted(res["queries"].items(), key=lambda kv: -kv[1]["median_ms"])
+    sec = want["seconds"]
+    phase("clickbench", t0, f"43 queries over {res['rows']} rows (scale "
+          f"{scale}), every answer == sqlite; load + compaction "
+          f"{res['load_s']:.1f} s, {res['size']} B; sum of hot medians "
+          f"{tot:.3f} ms, slowest " + ", ".join(
+              f"Q{k} {v['median_ms']:.1f} ms" for k, v in slow[:4])
+          + f"; launches on this path: {_counts_line()}; sqlite took "
+          f"{sec['total']:.1f} s (load {sec['load']:.1f} s), waited "
+          f"{want['waited_s']:.1f} s for it")
+    return res
 
 
 def main() -> int:
@@ -1696,6 +1925,10 @@ def main() -> int:
           f"{b3_err}); both accumulator modes (private slots, warp "
           f"aggregation) ran")
 
+    # ---- 10a. the card's bandwidth (roofline), before the B1 timing ------
+    roof = roofline_step(dev)
+    read_gbps = roof["read"]["events_gbps"]
+
     # ---- 4. main path at 100M rows, then NULLs (B1) ----------------------
     db1 = db = att.Database(platform="cuda")
     con1 = con = db.connect()
@@ -1745,7 +1978,9 @@ def main() -> int:
           f"{b1_ms:.4f} ms = {nbytes / b1_ms / 1e6:.1f} GB/s; wrapper (kernel "
           f"+ epilogue) {wrapper_ms:.4f} ms; plain version "
           f"{b1_plain_ms:.3f} ms; "
-          f"{_bound_line(nbytes + sc.numel() * 4 + 4 * 8, b1_ms)}")
+          f"{_bound_line(nbytes + sc.numel() * 4 + 4 * 8, b1_ms)}; "
+          f"{100 * nbytes / b1_ms / 1e6 / read_gbps:.1f}% of the measured "
+          f"read bandwidth {read_gbps:.1f} GB/s (roofline)")
     del words, part, segs, entries
 
     # ---- 5. TPC-H Q1 and Q6 at SF 10 (B3) ---------------------------------
@@ -1791,26 +2026,38 @@ def main() -> int:
     t3["db"].close()
     del t3["db"]
 
-    # ---- 8. the generic device path -----------------------------------------
-    t0 = time.perf_counter()
-    n_cmp = codecs_on_card(dev)
-    phase("generic codecs", t0, f"{n_cmp} comparisons (constant, rle, "
-          f"delta, dictionary, alp at {list(CODEC_COUNTS)} rows: decode, "
-          f"gather, pool of two), card == host bit for bit")
-    t4_path(HOT_RUNS).close()
-    adaptive_mix(db1, con1, N_ROWS, HOT_RUNS)
-    db1.close()
-    del db1, con1, db, con
+    # the sqlite oracles of phases 9 and 10d, started once no kernel is
+    # being timed (ClickBench's after phase 8 has freed t4's host arrays):
+    # they compute while phases 8-10c run
+    tpch_oracle_proc = start_oracle("--tpch-oracle", TPCH9_SF)
+    cb_oracle = None
+    try:
+        # ---- 8. the generic device path -------------------------------------
+        t0 = time.perf_counter()
+        n_cmp = codecs_on_card(dev)
+        phase("generic codecs", t0, f"{n_cmp} comparisons (constant, rle, "
+              f"delta, dictionary, alp at {list(CODEC_COUNTS)} rows: decode, "
+              f"gather, pool of two), card == host bit for bit")
+        t4_path(HOT_RUNS).close()
+        adaptive_mix(db1, con1, N_ROWS, HOT_RUNS)
+        db1.close()
+        del db1, con1, db, con
+        cb_oracle = start_oracle("--clickbench-oracle", CB_SCALE)
 
-    # ---- 9. the relational path: TPC-H SF 1, against sqlite ---------------
-    t0 = time.perf_counter()
-    fused_scan.KERNEL_LAUNCHES = grouped_scan.GROUPED_LAUNCHES = 0
-    grouped_scan.MULTI_LAUNCHES = 0
-    relational_path(TPCH9_HOT)
-    phase("relational", t0, f"launches on this path: B1 "
-          f"{fused_scan.KERNEL_LAUNCHES}, B2 {grouped_scan.GROUPED_LAUNCHES}, "
-          f"B3 {grouped_scan.MULTI_LAUNCHES}")
-    check(grouped_scan.MULTI_LAUNCHES > 0, "phase 9 launched no B3")
+        # ---- 9. the relational path: TPC-H SF 1, against sqlite -----------
+        t0 = time.perf_counter()
+        _zero_counts()
+        relational_path(TPCH9_HOT, oracle=tpch_oracle_proc)
+        phase("relational", t0, f"launches on this path: {_counts_line()}")
+        check(grouped_scan.MULTI_LAUNCHES > 0, "phase 9 launched no B3")
+
+        # ---- 10. the benchmark surface: headline, [succinct], ClickBench --
+        headline_step()
+        succinct_step(SUCCINCT_SCALE)
+        clickbench_step(cb_oracle, CB_SCALE)
+    finally:
+        stop(tpch_oracle_proc)
+        stop(cb_oracle)
 
     check(min(b1_launches, b2_launches, b3_launches) > 0,
           f"a kernel was not launched on its main path: B1 {b1_launches}, "
@@ -1840,9 +2087,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--tpch-oracle"]:
+    if sys.argv[1:2] in (["--tpch-oracle"], ["--clickbench-oracle"]):
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        tpch_oracle(float(sys.argv[2]))
+        oracle_of = {"--tpch-oracle": tpch_oracle,
+                     "--clickbench-oracle": clickbench_oracle}
+        oracle_of[sys.argv[1]](float(sys.argv[2]))
         sys.exit(0)
     try:
         sys.exit(main())

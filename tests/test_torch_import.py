@@ -16,6 +16,11 @@ def test_port_import_loads_no_jax():
         "import adacom_tpu_torch.native, adacom_tpu_torch.storage.segment\n"
         "import adacom_tpu_torch.exec.join, adacom_tpu_torch.exec.window\n"
         "import adacom_tpu_torch.exec.spill, adacom_tpu_torch.bench.tpch\n"
+        "import adacom_tpu_torch.bench.runner, adacom_tpu_torch.bench.headline\n"
+        "import adacom_tpu_torch.bench.clickbench, adacom_tpu_torch.bench.zipf\n"
+        "import adacom_tpu_torch.bench.succinct_benchmarks\n"
+        "import adacom_tpu_torch.tools.roofline\n"
+        "import adacom_tpu_torch.tools.clickbench_run\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'adacom_tpu' or m.startswith('adacom_tpu.'))\n"
         "print(bad)\n"
