@@ -60,18 +60,3 @@ class _FallbackToDevice(ExecError):
     """Internal: a host morsel hit a non-numpy path; rerun on the device.
     Uncaught (a scan the device path declines), it is an ExecError."""
 
-
-def client_module(name: str):
-    """Import adacom_tpu_torch.<name>, a client module of the JAX package
-    (relation, verification, io); an ExecError names it while it is not
-    ported (ROADMAP queue A item 4)."""
-    import importlib
-
-    full = f"adacom_tpu_torch.{name}"
-    try:
-        return importlib.import_module(full)
-    except ModuleNotFoundError as e:
-        if e.name != full and not full.startswith(f"{e.name}."):
-            raise
-        raise ExecError(f"not yet ported: {full} (ROADMAP queue A item 4)"
-                        ) from None

@@ -10,6 +10,8 @@ reference's 10k-sequential-lookup benchmarks."""
 
 from __future__ import annotations
 
+import os
+import tempfile
 import time
 from typing import Any, Dict, List, Optional
 
@@ -19,13 +21,16 @@ import torch
 from adacom_tpu_torch import types as tt
 from adacom_tpu_torch.exec.device_scan import declines
 from adacom_tpu_torch.exec.executor import Executor, Mat
-from adacom_tpu_torch.exec.mat import client_module
 from adacom_tpu_torch.main.result import QueryResult
 from adacom_tpu_torch.sql import ast
 from adacom_tpu_torch.catalog.catalog import CatalogException
 from adacom_tpu_torch.sql.binder import Binder, BindError
 from adacom_tpu_torch.sql.optimizer import optimize
 from adacom_tpu_torch.sql.parser import parse
+
+
+# the Chrome trace PRAGMA tpu_profile_stop writes into the trace directory
+TRACE_FILE = "trace.json"
 
 
 class SQLError(Exception):
@@ -80,16 +85,19 @@ class Connection:
     def table(self, name: str):
         """Relation API root (reference Connection::Table,
         src/main/connection.cpp): lazy composable query building."""
-        Relation = client_module("main.relation").Relation
+        from adacom_tpu_torch.main.relation import Relation
+
         self.db.catalog.get_table(name)  # existence check
         return Relation(self, f"SELECT * FROM {name}")
 
     def from_query(self, sql: str):
-        return client_module("main.relation").Relation(self, sql)
+        from adacom_tpu_torch.main.relation import Relation
+
+        return Relation(self, sql)
 
     def values(self, rows):
         """Relation over literal rows (reference Connection::Values)."""
-        Relation = client_module("main.relation").Relation
+        from adacom_tpu_torch.main.relation import Relation
 
         body = ", ".join(
             "(" + ", ".join(
@@ -260,11 +268,12 @@ class Connection:
             }
         res = QueryResult(mat.names, mat.types, mat.cols, mat.valids, mat.dicts)
         if self.db.config.query_verification_enabled:
-            verification = client_module("main.verification")
-            VerificationError = verification.VerificationError
+            from adacom_tpu_torch.main.verification import (
+                VerificationError, verify_select)
+
             try:
-                verification.verify_select(self, stmt, lits, res.fetchall(),
-                                           sql=sql, stmt_idx=stmt_idx)
+                verify_select(self, stmt, lits, res.fetchall(),
+                              sql=sql, stmt_idx=stmt_idx)
             except VerificationError as e:
                 raise SQLError(str(e)) from e
         return res
@@ -592,10 +601,35 @@ class Connection:
         if name == "segment_stats":
             print(cat.print_stats())
             return None
-        if name in ("tpu_profile_start", "tpu_profile_stop"):
-            # the JAX package traces with jax.profiler; the port's
-            # torch.profiler capture is not ported yet
-            raise NotImplementedError(f"PRAGMA {name} is not ported yet")
+        if name == "tpu_profile_start":
+            # device trace capture: torch.profiler over the host and, on a
+            # CUDA database, the card (the JAX package's PRAGMA runs
+            # jax.profiler); the PRAGMA keeps the JAX package's name
+            from torch.profiler import ProfilerActivity, profile
+
+            if self.db._profiler is not None:
+                raise SQLError("a tpu_profile trace is already running")
+            path = (str(stmt.args[0]).strip("'\"") if stmt.args else
+                    os.path.join(tempfile.gettempdir(), "adacom_trace"))
+            activities = [ProfilerActivity.CPU]
+            if self.db.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.start()
+            self.db._profiler, self.db._trace_dir = prof, path
+            return None
+        if name == "tpu_profile_stop":
+            prof = self.db._profiler
+            if prof is None:
+                raise SQLError("tpu_profile_stop without tpu_profile_start")
+            if self.db.device.type == "cuda":
+                torch.cuda.synchronize(self.db.device)
+            prof.stop()
+            self.db._profiler = None
+            path = self.db._trace_dir
+            os.makedirs(path, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(path, TRACE_FILE))
+            return self._text_result("trace_dir", path)
         if name == "database_size":
             return self._scalar_result("database_size", tt.BIGINT,
                                        cat.get_total_data_size())
@@ -653,7 +687,8 @@ class Connection:
     def _execute_copy(self, stmt: ast.CopyStmt, lits=()):
         """COPY t FROM/TO 'file' (reference physical_copy_from_file /
         physical_copy_to_file over the parallel CSV reader)."""
-        csv_io = client_module("io.csv_io")
+        from adacom_tpu_torch.io import csv_io
+
         opts = stmt.options or {}
         delim = str(opts.get("delimiter", opts.get("delim", ",")))
         fmt = str(opts.get("format", "")).lower()
@@ -667,11 +702,14 @@ class Connection:
             table = self.db.catalog.get_table(stmt.table)
             header = opts.get("header")
             if fmt == "parquet":
-                names, types, cols, valids = client_module(
-                    "io.parquet_io").read_parquet(stmt.path)
+                from adacom_tpu_torch.io import parquet_io
+
+                names, types, cols, valids = parquet_io.read_parquet(
+                    stmt.path)
             elif fmt == "json":
-                names, types, cols, valids = client_module(
-                    "io.json_io").read_json(stmt.path)
+                from adacom_tpu_torch.io import json_io
+
+                names, types, cols, valids = json_io.read_json(stmt.path)
             else:
                 names, types, cols, valids = csv_io.read_csv(
                     stmt.path, header=header, delim=delim)
@@ -699,7 +737,8 @@ class Connection:
         res = QueryResult(mat.names, mat.types, mat.cols, mat.valids,
                           mat.dicts)
         if fmt == "parquet":
-            parquet_io = client_module("io.parquet_io")
+            from adacom_tpu_torch.io import parquet_io
+
             cols_out, types_out = [], []
             for t, c, d in zip(res.types, res._cols, res._dicts):
                 arr = np.asarray(c)

@@ -846,9 +846,8 @@ class Binder:
             return self._anon_table_plan(
                 alias, ["range"], [tt.BIGINT], [vals], [None])
         if name in ("read_csv", "read_csv_auto"):
-            from adacom_tpu_torch.exec.mat import client_module
+            from adacom_tpu_torch.io import csv_io
 
-            csv_io = client_module("io.csv_io")
             if not args:
                 raise BindError("read_csv(path)")
             header = args[1] if len(args) > 1 else None
@@ -860,9 +859,8 @@ class Binder:
                 raise BindError(f"empty CSV: {args[0]}")
             return self._anon_table_plan(alias, names, types, cols, valids)
         if name in ("read_parquet", "parquet_scan"):
-            from adacom_tpu_torch.exec.mat import client_module
+            from adacom_tpu_torch.io import parquet_io
 
-            parquet_io = client_module("io.parquet_io")
             if not args:
                 raise BindError("read_parquet(path)")
             names, types, cols, valids = parquet_io.read_parquet(str(args[0]))
@@ -870,9 +868,8 @@ class Binder:
                 raise BindError(f"empty parquet file: {args[0]}")
             return self._anon_table_plan(alias, names, types, cols, valids)
         if name in ("read_json", "read_json_auto", "read_ndjson"):
-            from adacom_tpu_torch.exec.mat import client_module
+            from adacom_tpu_torch.io import json_io
 
-            json_io = client_module("io.json_io")
             if not args:
                 raise BindError("read_json(path)")
             names, types, cols, valids = json_io.read_json(str(args[0]))

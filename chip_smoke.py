@@ -88,9 +88,34 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
       answer equal to sqlite's, computed in a subprocess; per query its
       cold time, the median of 3 hot runs and the cold run's launches.
    The sqlite oracles of phases 9 and 10d start after phase 7's timings
-   and after phase 8 respectively, so they compute while phases 8-10c run.
+   and after phase 8 respectively, so they compute while phases 8-10c run;
+11. durable databases and the client surface, right after phase 9, on
+   phase 9's generated tables and sqlite answers, in a temporary directory
+   removed at the end:
+   a. Database(path=...) on the card: the eight tables through the
+      appender, every batch logged; load seconds, WAL bytes and the
+      checkpoints the 64 MiB threshold set off;
+   b. compaction and CHECKPOINT: seconds, bytes of ckpt-<n>/, a WAL of 0 B;
+   c. close() (one more checkpoint) and a reopen on the card: seconds;
+      every segment's state, codec, rows and bytes equal b's;
+   d. the 22 queries, one cold and one hot run each, equal to sqlite; Q1
+      and Q6 launch B3; a filtered count/min/max over l_shipdate launches
+      B1, equal to numpy; peak extra device memory at most 4 GiB;
+   e. committed transactions (100,000 appended rows and a DELETE; an
+      UPDATE; a 3-row INSERT) and a rolled-back one; a copy of the open
+      directory (a crash) reopens to the live answers (count, Q1, Q6, Q3)
+      without the rolled-back change; with the last record torn it
+      reopens to the state before the INSERT; an aborted checkpoint raises
+      CheckpointAbort and a reopen gives the live answers;
+   f. COPY (SELECT ...) TO csv, read_csv into a table (a Q6-style
+      aggregate equal to lineitem's), read_json, dbapi.connect on the copy
+      (Q6), `python3 -m adacom_tpu_torch` on a second copy with Q6 piped
+      in, and Q6 under PRAGMA tpu_profile_start/stop, in this process
+      (11d) and in a fresh one (the shell with SQL arguments on a copy
+      made in 11d): each trace's device events and whether B3's kernel is
+      named in it.
 
-Each main path (4, 5, 6, 9, 10b-d) runs with the launch counts set to 0
+Each main path (4, 5, 6, 9, 10b-d, 11) runs with the launch counts set to 0
 just before it and read just after. The last two lines are the kernels'
 JSON record and the result line. `python3 chip_smoke.py --tpch-oracle SF`
 and `--clickbench-oracle SCALE` are the sqlite subprocesses (no card
@@ -1502,7 +1527,6 @@ def relational_path(hot_runs, sf=TPCH9_SF, platform="cuda", oracle=None):
         con = db.connect()
         tpch.load_into_engine(con, data)
         n_rows = sum(len(next(iter(c.values()))) for c in data.values())
-        del data
         phase("relational load", t0, f"TPC-H SF {sf}: 8 tables, {n_rows} "
               f"rows, generate {t_gen:.1f} s; sqlite oracle running in "
               f"pid {oracle.pid}")
@@ -1653,9 +1677,416 @@ def relational_path(hot_runs, sf=TPCH9_SF, platform="cuda", oracle=None):
                   f"over the {sum(d is not None for d in dev)} queries the "
                   f"profiler recorded", flush=True)
         db.close()
-        return records
+        return records, data, want
     finally:
         stop(oracle)
+
+
+# ---- 11. durable databases and the client surface -----------------------------
+
+# disk the phase needs: the WAL of the load (~1.5-2.5 GB at SF 1), two
+# checkpoints and two copies of the directory
+DURABLE_DISK_MIN = 12 << 30
+T1_ROWS = 100_000
+
+
+def _li_values(keys):
+    """INSERT values of lineitem rows with these order keys: outside Q1's
+    and Q6's dates and without an order, so only count(*) sees them."""
+    return ", ".join(
+        f"({k}, 1, 1, 1, 49.00, 4900.00, 0.10, 0.02, 'N', 'O', DATE "
+        f"'1998-11-30', DATE '1998-11-30', DATE '1998-12-01', 'NONE', "
+        f"'AIR')" for k in keys)
+
+B1_QUERY = ("SELECT count(*), count(l_shipdate), min(l_shipdate), "
+            "max(l_shipdate) FROM lineitem WHERE l_shipdate >= DATE "
+            "'1995-01-01'")
+COPY_SELECT = ("SELECT l_quantity, l_extendedprice, l_discount, l_shipdate "
+               "FROM lineitem WHERE l_shipdate >= DATE '1994-01-01' AND "
+               "l_shipdate < DATE '1995-01-01'")
+Q6_STYLE = ("SELECT count(*), sum(l_extendedprice * l_discount) FROM {} "
+            "WHERE l_shipdate >= DATE '1994-01-01' AND l_shipdate < DATE "
+            "'1995-01-01' AND l_discount BETWEEN 0.05 AND 0.07 AND "
+            "l_quantity < 24")
+
+
+def _shell(platform, path, *sql, stdin=None):
+    """`python3 -m adacom_tpu_torch` on a database directory, in a
+    subprocess: SQL given as arguments, else the script on `stdin`."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "adacom_tpu_torch", "--platform", platform,
+         path, *sql], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdin=stdin, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def crash(db):
+    """Drop a durable database as a crash would: its closing checkpoint is
+    skipped and the WAL stays as it is on disk."""
+    db.wal.close()
+    db.catalog.shutdown()
+    db._closed = True
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _d, fs in os.walk(path) for f in fs)
+
+
+def _layout(con):
+    """PRAGMA compression_info without the read counts: per segment its
+    table, column, index, codec, state, rows and bytes."""
+    return [tuple(r[:7]) for r in _rows(
+        con.query("PRAGMA compression_info").fetchall())]
+
+
+def _durable_answers(con):
+    """count(*), Q1, Q6 and Q3: what 11e holds a reopened copy to."""
+    from adacom_tpu_torch.bench import tpch
+
+    out = {"count": _rows(con.query("SELECT count(*) FROM lineitem")
+                          .fetchall())}
+    for q in (1, 6, 3):
+        out[f"Q{q}"] = _rows(con.query(tpch.QUERIES[q]).fetchall())
+    return out
+
+
+def _same_answers(got, want, what):
+    for k, rows in want.items():
+        check(_sql_equal(got[k], rows, ordered=True),
+              f"{what}: {k} {got[k][:3]} != {rows[:3]}")
+
+
+def _b1_expected(li):
+    """B1_QUERY's answer in numpy over the generated lineitem."""
+    import datetime
+
+    import numpy as np
+
+    ship = np.asarray(li["l_shipdate"])
+    days = ship[ship >= (datetime.date(1995, 1, 1)
+                         - datetime.date(1970, 1, 1)).days]
+    iso = [str(datetime.date(1970, 1, 1) + datetime.timedelta(days=int(d)))
+           for d in (days.min(), days.max())]
+    return [[len(days), len(days), iso[0], iso[1]]]
+
+
+def _trace_events(path):
+    """(device events, names of the kernels, events per category) of a
+    torch.profiler Chrome trace; device events are its kernel, memcpy and
+    memset events."""
+    import collections
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    cats = collections.Counter(str(e.get("cat")) for e in events)
+    return (dev, {e.get("name", "") for e in dev if e.get("cat") == "kernel"},
+            dict(cats.most_common(6)))
+
+
+def durable_path(data, want, hot_runs=1, platform="cuda"):
+    """Phase 11: the TPC-H tables of phase 9 (`data`, and `want`, phase 9's
+    sqlite answers) in a durable database on the card: load through the
+    appender with every batch logged, compaction and CHECKPOINT, close and
+    reopen, the 22 queries cold and hot, committed, torn and rolled-back
+    transactions read back from a copy of the directory, an aborted
+    checkpoint, and the client surface (COPY, read_csv, read_json, the
+    DB-API, the shell, the trace PRAGMAs). Returns its record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import adacom_tpu_torch as att
+    from adacom_tpu_torch import dbapi
+    from adacom_tpu_torch.bench import tpch
+    from adacom_tpu_torch.main.connection import TRACE_FILE
+    from adacom_tpu_torch.main.database import CheckpointAbort
+    from adacom_tpu_torch.ops import fused_scan, grouped_scan
+
+    rec = {}
+    root = tempfile.mkdtemp(prefix="adacom_durable_")
+    shell = traced = None
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= DURABLE_DISK_MIN, f"durable: {free} B free under "
+              f"{root}, {DURABLE_DISK_MIN} B needed")
+        d = os.path.join(root, "db")
+
+        # ---- 11a. load through the appender, every batch logged --------
+        t0 = time.perf_counter()
+        db = att.Database(path=d, platform=platform)
+        con = db.connect()
+        tpch.load_into_engine(con, data)
+        rec["load_s"] = time.perf_counter() - t0
+        rec["wal_bytes"] = db.wal.size()
+        rec["load_checkpoints"] = db._ckpt_seq
+        phase("durable load", t0, f"8 tables through the appender in "
+              f"{rec['load_s']:.2f} s; WAL {rec['wal_bytes']} B; "
+              f"{db._ckpt_seq} checkpoint(s) set off by the "
+              f"{db.config.wal_autocheckpoint} B threshold; {free} B free "
+              f"under {root}")
+
+        # ---- 11b. compact, CHECKPOINT ------------------------------------
+        t0 = time.perf_counter()
+        con.query("PRAGMA compact_all_segments")
+        t_compact = time.perf_counter() - t0
+        t = time.perf_counter()
+        con.query("CHECKPOINT")
+        rec["checkpoint_s"] = time.perf_counter() - t
+        rec["checkpoint_bytes"] = _dir_bytes(
+            os.path.join(d, db._read_current()))
+        check(db.wal.size() == 0, f"WAL {db.wal.size()} B after CHECKPOINT")
+        layout = _layout(con)
+        states = {}
+        for r in layout:
+            states[(r[4], r[3])] = states.get((r[4], r[3]), 0) + 1
+        phase("durable checkpoint", t0, f"compaction {t_compact:.2f} s; "
+              f"CHECKPOINT {rec['checkpoint_s']:.2f} s, "
+              f"{rec['checkpoint_bytes']} B in {db._read_current()}/; WAL "
+              f"0 B after it; segments by (state, codec): {states}")
+
+        # ---- 11c. close, reopen on the card -----------------------------
+        t0 = time.perf_counter()
+        db.close()  # checkpoints once more
+        rec["close_s"] = time.perf_counter() - t0
+        del db, con
+        torch.cuda.synchronize()
+        mark = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        db = att.Database(path=d, platform=platform)
+        con = db.connect()
+        rec["reopen_s"] = time.perf_counter() - t
+        check(_layout(con) == layout,
+              "reopened states, codecs or row counts differ from 11b's")
+        phase("durable reopen", t0, f"close (its checkpoint) "
+              f"{rec['close_s']:.2f} s; reopen {rec['reopen_s']:.2f} s; "
+              f"{len(layout)} segments with 11b's states, codecs, rows "
+              f"and bytes")
+
+        # ---- 11d. the 22 queries, cold and hot ----------------------------
+        t0 = time.perf_counter()
+        rec["queries"] = {}
+        for qid in sorted(tpch.QUERIES):
+            sql = tpch.QUERIES[qid]
+            b3 = grouped_scan.MULTI_LAUNCHES
+            t = time.perf_counter()
+            got = _rows(con.query(sql).fetchall())
+            cold = time.perf_counter() - t
+            b3_cold = grouped_scan.MULTI_LAUNCHES - b3
+            hot = []
+            for _ in range(hot_runs):
+                t = time.perf_counter()
+                again = _rows(con.query(sql).fetchall())
+                hot.append(time.perf_counter() - t)
+                check(again == got, f"Q{qid} after reopen: hot != cold")
+            check(_sql_equal(got, want["tpch"][str(qid)],
+                             "ORDER BY" in sql),
+                  f"Q{qid} after reopen: {got[:3]} != sqlite "
+                  f"{want['tpch'][str(qid)][:3]}")
+            if qid in (1, 6):
+                check(b3_cold > 0 and grouped_scan.MULTI_LAUNCHES - b3
+                      > b3_cold, f"Q{qid} after reopen skipped B3")
+            rec["queries"][qid] = (cold * 1e3, statistics.median(hot) * 1e3)
+            print(f"[durable Q{qid}] cold {cold * 1e3:.3f} ms; hot "
+                  f"{statistics.median(hot) * 1e3:.3f} ms; B3 launches "
+                  f"{grouped_scan.MULTI_LAUNCHES - b3}; == sqlite",
+                  flush=True)
+        b1 = fused_scan.KERNEL_LAUNCHES
+        got = _rows(con.query(B1_QUERY).fetchall())
+        check(fused_scan.KERNEL_LAUNCHES > b1, "B1_QUERY skipped B1")
+        check(got == _b1_expected(data["lineitem"]),
+              f"B1_QUERY {got} != numpy {_b1_expected(data['lineitem'])}")
+        # Q6 under the trace PRAGMAs (before 11e's deletes, so B3 runs)
+        trace_dir = os.path.join(root, "trace")
+        con.query(f"PRAGMA tpu_profile_start('{trace_dir}')")
+        b3 = grouped_scan.MULTI_LAUNCHES
+        con.query(tpch.QUERIES[6]).fetchall()
+        b3 = grouped_scan.MULTI_LAUNCHES - b3
+        out = con.query("PRAGMA tpu_profile_stop").fetchall()
+        check(out == [(trace_dir,)] and b3 > 0, f"trace PRAGMAs: {out}, "
+              f"B3 {b3}")
+        dev, kernels, cats = _trace_events(
+            os.path.join(trace_dir, TRACE_FILE))
+        rec["trace_device_events"] = len(dev)
+        rec["trace_b3"] = any("grouped_scan_kernel" in k for k in kernels)
+        # the same PRAGMAs in a fresh process (the shell, on a copy of the
+        # directory), where no earlier profiler session ran; read in 11f
+        fresh, fresh_trace = (os.path.join(root, n) for n in ("fresh",
+                                                              "trace2"))
+        shutil.copytree(d, fresh)
+        traced = _shell(platform, fresh,
+                        f"PRAGMA tpu_profile_start('{fresh_trace}')",
+                        tpch.QUERIES[6], "PRAGMA tpu_profile_stop")
+        torch.cuda.synchronize()
+        rec["peak_extra"] = torch.cuda.max_memory_allocated() - mark
+        check(rec["peak_extra"] <= PEAK_EXTRA_LIMIT,
+              f"durable queries: peak extra device memory "
+              f"{rec['peak_extra']} B")
+        cold = sum(c for c, _h in rec["queries"].values())
+        hot = sum(h for _c, h in rec["queries"].values())
+        phase("durable queries", t0, f"22 queries after the reopen == "
+              f"sqlite: cold sum {cold:.3f} ms, hot sum {hot:.3f} ms; B1 "
+              f"over l_shipdate == numpy; peak extra device memory "
+              f"{rec['peak_extra']} B; Q6 under tpu_profile_start/stop "
+              f"launched B3 {b3} time(s), its trace holds {len(dev)} device "
+              f"events, B3's kernel "
+              f"{'named' if rec['trace_b3'] else 'absent'} (kernels "
+              f"{sorted(kernels)[:6]}; events by category {cats})")
+
+        # ---- 11e. transactions, a crash copy, a torn tail, an abort -------
+        t0 = time.perf_counter()
+        li = data["lineitem"]
+        new = {c: np.asarray(v[:T1_ROWS]).copy() for c, v in li.items()}
+        new["l_orderkey"] = new["l_orderkey"] + 100_000_000
+        con.query("BEGIN")
+        app = con.appender("lineitem")
+        app.append_columns(new)
+        app.close()
+        con.query("DELETE FROM lineitem WHERE l_orderkey % 97 = 0")
+        con.query("COMMIT")
+        n_upd = con.query("SELECT count(*) FROM lineitem WHERE l_shipdate "
+                          ">= DATE '1998-08-01'").fetchall()[0][0]
+        con.query("BEGIN")
+        con.query("UPDATE lineitem SET l_discount = l_discount + 0.01 "
+                  "WHERE l_shipdate >= DATE '1998-08-01'")
+        con.query("COMMIT")
+        before_t3 = _durable_answers(con)
+        seq_t3 = db._ckpt_seq
+        con.query("BEGIN")
+        con.query("INSERT INTO lineitem VALUES "
+                  + _li_values(range(900_000_001, 900_000_004)))
+        con.query("COMMIT")
+        live = _durable_answers(con)
+        check(live["count"][0][0] == before_t3["count"][0][0] + 3,
+              f"T3: {live['count']} after {before_t3['count']}")
+        con.query("BEGIN")
+        con.query("DELETE FROM lineitem WHERE l_quantity < 10")
+        con.query("INSERT INTO lineitem VALUES " + _li_values([-7]))
+        con.query("ROLLBACK")
+        check(_durable_answers(con) == live, "ROLLBACK left a change")
+        wal_t3 = db.wal.size()
+        copy = os.path.join(root, "copy")
+        shutil.copytree(d, copy)  # the database stays open: a crash copy
+        t = time.perf_counter()
+        dbc = att.Database(path=copy, platform=platform)
+        t_copy = time.perf_counter() - t
+        got = _durable_answers(dbc.connect())
+        _same_answers(got, live, "crash copy")
+        check(dbc.connect().query("SELECT count(*) FROM lineitem WHERE "
+                                  "l_orderkey < 0").fetchall()[0][0] == 0,
+              "the rolled-back rows reached the copy")
+        crash(dbc)
+        del dbc
+        # a torn tail: T3's record loses its last bytes
+        check(seq_t3 == db._ckpt_seq and wal_t3 > 16,
+              f"T3 set off a checkpoint ({seq_t3} -> {db._ckpt_seq})")
+        with open(os.path.join(copy, "wal.log"), "r+b") as f:
+            f.truncate(wal_t3 - 5)
+        t = time.perf_counter()
+        dbt = att.Database(path=copy, platform=platform)
+        t_torn = time.perf_counter() - t
+        _same_answers(_durable_answers(dbt.connect()), before_t3,
+                      "torn tail")
+        crash(dbt)
+        del dbt
+        # an aborted checkpoint leaves CURRENT and the WAL as they were
+        con.query("SET checkpoint_abort='before_header'")
+        current = db._read_current()
+        t = time.perf_counter()
+        try:
+            con.query("CHECKPOINT")
+            check(False, "CHECKPOINT with checkpoint_abort did not raise")
+        except CheckpointAbort:
+            pass
+        t_abort = time.perf_counter() - t
+        check(db._read_current() == current and db.wal.size() == wal_t3,
+              "the aborted checkpoint moved CURRENT or the WAL")
+        crash(db)
+        del db, con
+        t = time.perf_counter()
+        db = att.Database(path=d, platform=platform)
+        con = db.connect()
+        t_reabort = time.perf_counter() - t
+        _same_answers(_durable_answers(con), live, "after the abort")
+        rec.update(copy_open_s=t_copy, torn_open_s=t_torn,
+                   abort_s=t_abort, abort_reopen_s=t_reabort)
+        phase("durable crash", t0, f"T1 appended {T1_ROWS} rows and "
+              f"deleted l_orderkey % 97 = 0; T2 updated {n_upd} rows (its "
+              f"COMMIT left {seq_t3} checkpoint(s) in all); T3 inserted 3 "
+              f"rows; T4 rolled back. The copy opened in {t_copy:.2f} s "
+              f"== live (count, Q1, Q6, Q3), no rolled-back row; torn "
+              f"tail opened in {t_torn:.2f} s == the state before T3; "
+              f"checkpoint_abort raised after {t_abort:.2f} s, the reopen "
+              f"({t_reabort:.2f} s) == live")
+
+        # ---- 11f. the client surface on the card --------------------------
+        t0 = time.perf_counter()
+        copy2 = os.path.join(root, "copy2")
+        shutil.copytree(copy, copy2)
+        q6 = tpch.QUERIES[6]
+        script = os.path.join(root, "q6.sql")
+        with open(script, "w") as f:
+            f.write(q6.rstrip().rstrip(";") + ";\n")
+        with open(script) as f:  # piped in: the shell reads its stdin
+            shell = _shell(platform, copy2, stdin=f)
+        csv_path = os.path.join(root, "x.csv")
+        n_csv = con.query(f"COPY ({COPY_SELECT}) TO '{csv_path}'").fetchall()
+        con.query(f"CREATE TABLE l2 AS SELECT * FROM read_csv('{csv_path}')")
+        got = _rows(con.query(Q6_STYLE.format("l2")).fetchall())
+        exp = _rows(con.query(Q6_STYLE.format("lineitem")).fetchall())
+        check(_sql_equal(got, exp, True), f"read_csv: {got} != {exp}")
+        json_path = os.path.join(root, "x.ndjson")
+        with open(json_path, "w") as f:
+            for k in range(1000):
+                f.write(json.dumps({"a": k, "s": None if k % 7 else f"s{k}",
+                                    "f": k / 4}) + "\n")
+        got = _rows(con.query(f"SELECT count(*), sum(a), count(s), sum(f) "
+                              f"FROM read_json('{json_path}')").fetchall())
+        check(got == [[1000, 499500, 143, 124875.0]], f"read_json: {got}")
+        t = time.perf_counter()
+        dcon = dbapi.connect(path=copy, platform=platform)
+        got = _rows(dcon.execute(q6).fetchall())
+        dcon.close()
+        t_dbapi = time.perf_counter() - t
+        check(_sql_equal(got, before_t3["Q6"], True),
+              f"dbapi Q6 {got} != {before_t3['Q6']}")
+        out, err = shell.communicate(timeout=600)
+        check(shell.returncode == 0, f"shell failed: {err[-2000:]}")
+        last = out.strip().splitlines()[-1]
+        check(_sql_equal([[float(last)]], before_t3["Q6"], True),
+              f"shell printed {out[-300:]!r}, Q6 is {before_t3['Q6']}")
+        out, err = traced.communicate(timeout=600)
+        check(traced.returncode == 0, f"traced shell failed: {err[-2000:]}")
+        lines = out.strip().splitlines()
+        check(lines[2:] == ["trace_dir", fresh_trace] and _sql_equal(
+            [[float(lines[1])]], want["tpch"]["6"], True),
+            f"traced shell printed {out[-300:]!r}")
+        dev2, kernels2, cats2 = _trace_events(
+            os.path.join(fresh_trace, TRACE_FILE))
+        rec["fresh_trace_device_events"] = len(dev2)
+        rec["fresh_trace_b3"] = any("grouped_scan_kernel" in k
+                                    for k in kernels2)
+        phase("durable client", t0, f"COPY TO wrote {n_csv[0][0]} rows; "
+              f"read_csv -> l2: the Q6-style aggregate == lineitem's; "
+              f"read_json == python; dbapi.connect on the copy: Q6 == "
+              f"before T3 ({t_dbapi:.2f} s with its closing checkpoint); "
+              f"the shell on a second copy printed Q6 ({last}); Q6 under "
+              f"the trace PRAGMAs in a fresh process (the shell on an 11d "
+              f"copy): {len(dev2)} device events, B3's kernel "
+              f"{'named' if rec['fresh_trace_b3'] else 'absent'} (kernels "
+              f"{sorted(k[:50] for k in kernels2)[:6]}; events by category "
+              f"{cats2})")
+        crash(db)
+        return rec
+    finally:
+        stop(shell)
+        stop(traced)
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---- 10. the benchmark surface ------------------------------------------------
@@ -1663,9 +2094,9 @@ def relational_path(hot_runs, sf=TPCH9_SF, platform="cuda", oracle=None):
 ROOFLINE_ROWS = 64e6
 HEADLINE_SCALE = 1.0  # bench.py's 100M rows
 SUCCINCT_SCALE = 0.01
-# ClickBench rows: 2M of the module's full 10M, cut to fit the command's
-# time limit (PERF.md §4)
-CB_SCALE = 0.2
+# ClickBench rows: 1M of the module's full 10M, cut to fit the command's
+# time limit beside phase 11 (PERF.md §4)
+CB_SCALE = 0.1
 CB_HOT = 3
 
 
@@ -2047,9 +2478,19 @@ def main() -> int:
         # ---- 9. the relational path: TPC-H SF 1, against sqlite -----------
         t0 = time.perf_counter()
         _zero_counts()
-        relational_path(TPCH9_HOT, oracle=tpch_oracle_proc)
+        _records, tpch_data, tpch_want = relational_path(
+            TPCH9_HOT, oracle=tpch_oracle_proc)
         phase("relational", t0, f"launches on this path: {_counts_line()}")
         check(grouped_scan.MULTI_LAUNCHES > 0, "phase 9 launched no B3")
+
+        # ---- 11. durable TPC-H SF 1 and the client surface ---------------
+        t0 = time.perf_counter()
+        _zero_counts()
+        durable_path(tpch_data, tpch_want)
+        phase("durable", t0, f"launches on this path: {_counts_line()}")
+        check(grouped_scan.MULTI_LAUNCHES > 0 and
+              fused_scan.KERNEL_LAUNCHES > 0, "phase 11 skipped B3 or B1")
+        del tpch_data, tpch_want
 
         # ---- 10. the benchmark surface: headline, [succinct], ClickBench --
         headline_step()

@@ -21,6 +21,11 @@ def test_port_import_loads_no_jax():
         "import adacom_tpu_torch.bench.succinct_benchmarks\n"
         "import adacom_tpu_torch.tools.roofline\n"
         "import adacom_tpu_torch.tools.clickbench_run\n"
+        "import adacom_tpu_torch.storage.wal, adacom_tpu_torch.storage.checkpoint\n"
+        "import adacom_tpu_torch.dbapi, adacom_tpu_torch.shell\n"
+        "import adacom_tpu_torch.main.relation, adacom_tpu_torch.main.verification\n"
+        "import adacom_tpu_torch.sql.serialize, adacom_tpu_torch.io.csv_io\n"
+        "import adacom_tpu_torch.io.json_io, adacom_tpu_torch.io.parquet_io\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'adacom_tpu' or m.startswith('adacom_tpu.'))\n"
         "print(bad)\n"
@@ -30,3 +35,30 @@ def test_port_import_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_shell_module_help_loads_no_jax():
+    """`python3 -m adacom_tpu_torch --help` prints the shell's usage; the
+    run loads neither JAX nor the JAX package."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['adacom_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('adacom_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'adacom_tpu' or m.startswith('adacom_tpu.'))\n"
+        "print(bad)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "python3 -m adacom_tpu_torch" in proc.stdout
+    assert ".tables" in proc.stdout
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    proc = subprocess.run([sys.executable, "-m", "adacom_tpu_torch", "--help"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--platform cuda|cpu" in proc.stdout
