@@ -21,9 +21,17 @@ change with every DELETE, so a pool of segments that carry one uploads
 their masks per query (the JAX package's per-segment delete-mask branch).
 
 Not carried over, being TPU-link or XLA workarounds: the one-hot grouped
-reduce, power-of-two pool padding with dummy segments, the 16-wide count
-vector and the padded pulls. The SPMD variant of the pooled kernel belongs
-to the parallel layer (ROADMAP queue A item 13).
+reduce, power-of-two pool padding with dummy segments on one device, the
+16-wide count vector and the padded pulls.
+
+With a mesh (Database(mesh=...)), the scan-aggregate takes the distributed
+pooled path, the twin of the JAX package's _build_distributed_scan_agg_kernel
+(executor.py:2855) under its pool rules (:1838-1905): every pool of
+segments without a delete mask pads to a power of two and then to a
+multiple of the shard count with zero-count dummies, shards over the mesh,
+runs the pooled body on each shard and merges the shards' partials with
+psum / pmin / pmax (parallel/collectives.py). Pools of segments that carry
+a delete mask stay on the single-device path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from adacom_tpu_torch.ops import bitpack, codecs, segcodec
 from adacom_tpu_torch.ops.select import compact, tail_mask
 from adacom_tpu_torch.sql import bound as b
 from adacom_tpu_torch.exec.expr import ExprCompiler, compute_dtype_of, device_args
+from adacom_tpu_torch.parallel import collectives as coll
+from adacom_tpu_torch.parallel import mesh as pmesh
 
 # generic scan-aggregates and device scans run (a plain integer, like the
 # kernels' launch counters: a run resets and reads it to check routing)
@@ -131,6 +141,24 @@ def _decode_columns(metas, dtypes, args, n_pad):
 def _rows(v: torch.Tensor, n: int) -> torch.Tensor:
     """An evaluated value as n rows (a constant broadcasts)."""
     return v if v.dim() and v.shape[0] == n else torch.broadcast_to(v, (n,))
+
+
+def _chunk(metas, dtypes, n_pad, filt, fparams, counts, args, dels=None):
+    """Decode and filter a chunk of a pool: (mask, cols) with the flat
+    (n * n_pad,) mask of rows that are real, not deleted (dels: the flat
+    delete mask, or None) and pass the filter, and cols as
+    _decode_columns gives them."""
+    cols = _decode_columns(metas, dtypes, args, n_pad)
+    mask = tail_mask(n_pad, counts).reshape(-1)
+    if dels is not None:
+        mask &= ~dels
+    if filt is not None:
+        # a BOOLEAN column filters as its 0/1 values
+        fv, fm = filt.fn(cols, fparams)
+        mask &= _rows(fv, mask.shape[0]).to(torch.bool)
+        if fm is not None:
+            mask &= _rows(fm, mask.shape[0])
+    return mask, cols
 
 
 # ======================================================================
@@ -368,21 +396,17 @@ class DeviceScan:
     """The executor's generic device path (mixed into exec.executor's
     Executor, whose snapshot, zonemap and filter helpers it uses)."""
 
-    def _filtered_chunks(self, get, lits):
-        """Decode and filter the candidate segments on the device, one
-        chunk of a pool at a time. Yields (seg_ids, counts, n_pad, mask,
-        cols): the chunk's n segment indices and row counts (host lists),
-        its padded rows per segment, the flat (n * n_pad,) mask of rows
-        that are real, not deleted and pass the filter, and per scan column
-        (values, valid | None), flat, in the device dtype. Callers route a
-        scan that declines() to the host tier first."""
+    def _scan_pools(self, get, lits):
+        """The candidate segments of a scan grouped into pools, and what
+        decoding and filtering them takes: (pools, dtypes, filt, fparams),
+        pools mapping (metas, n_pad, has_del) to the entries
+        (segment index, rows, segments, decoder arguments, delete mask).
+        Callers route a scan that declines() to the host tier first."""
         if declines(get):
             raise ValueError("a UBIGINT scan reached the generic device path")
-        table = get.table
-        dev = self.db.device
-        snap = self._pin_snapshot(table)
+        snap = self._pin_snapshot(get.table)
         filt = self._compiled_filter(get)
-        fparams = (device_args(filt.prep_args(lits), dev)
+        fparams = (device_args(filt.prep_args(lits), self.db.device)
                    if filt is not None else ())
         dtypes = [compute_dtype_of(t) for t in get.types]
         pools: dict = {}
@@ -399,43 +423,52 @@ class DeviceScan:
             n_pad = bitpack.ROWS * bitpack.lanes_for(count)
             key = (tuple(metas), n_pad, del_mask is not None)
             pools.setdefault(key, []).append((i, count, segs, arrays, del_mask))
+        return pools, dtypes, filt, fparams
 
+    def _pool_chunks(self, table, key, entries, dtypes, filt, fparams):
+        """Decode and filter one pool on the device, a chunk at a time.
+        Yields (seg_ids, counts, n_pad, mask, cols): the chunk's n segment
+        indices and row counts (host lists), its padded rows per segment,
+        the flat (n * n_pad,) mask of rows that are real, not deleted and
+        pass the filter, and per scan column (values, valid | None), flat,
+        in the device dtype."""
+        dev = self.db.device
+        metas, n_pad, has_del = key
+        # stacked arguments, reused while no segment of the pool changes;
+        # keyed on monotonic segment serials, never on id()
         cache = pool_cache(table)
+        stack_key = ("generic", key, tuple(
+            (s.serial, s.version) for e in entries for s in e[2]))
+        stacked = cache.get(stack_key)
+        if stacked is None:
+            counts_t = torch.tensor([e[1] for e in entries],
+                                    dtype=torch.int64, device=dev)
+            stacked = (counts_t,) + tuple(
+                _stack([e[3][a] for e in entries], dev)
+                for a in range(len(entries[0][3])))
+            cache.put(stack_key, stacked)
+        counts_t, args = stacked[0], stacked[1:]
+        step = max(1, CHUNK_ROWS // n_pad)
+        for s0 in range(0, len(entries), step):
+            part = entries[s0:s0 + step]
+            dels = None
+            if has_del:
+                dm = np.zeros((len(part), n_pad), dtype=bool)
+                for j, e in enumerate(part):
+                    k = min(len(e[4]), n_pad)
+                    dm[j, :k] = e[4][:k]
+                dels = torch.from_numpy(dm.reshape(-1)).to(dev)
+            mask, cols = _chunk(metas, dtypes, n_pad, filt, fparams,
+                                counts_t[s0:s0 + step],
+                                [a[s0:s0 + step] for a in args], dels)
+            yield [e[0] for e in part], [e[1] for e in part], n_pad, mask, cols
+
+    def _filtered_chunks(self, get, lits):
+        """Every pool of a scan through _pool_chunks."""
+        pools, dtypes, filt, fparams = self._scan_pools(get, lits)
         for key, entries in pools.items():
-            metas, n_pad, has_del = key
-            # stacked arguments, reused while no segment of the pool
-            # changes; keyed on monotonic segment serials, never on id()
-            stack_key = ("generic", key, tuple(
-                (s.serial, s.version) for e in entries for s in e[2]))
-            stacked = cache.get(stack_key)
-            if stacked is None:
-                counts_t = torch.tensor([e[1] for e in entries],
-                                        dtype=torch.int64, device=dev)
-                stacked = (counts_t,) + tuple(
-                    _stack([e[3][a] for e in entries], dev)
-                    for a in range(len(entries[0][3])))
-                cache.put(stack_key, stacked)
-            counts_t, args = stacked[0], stacked[1:]
-            step = max(1, CHUNK_ROWS // n_pad)
-            for s0 in range(0, len(entries), step):
-                part = entries[s0:s0 + step]
-                cols = _decode_columns(
-                    metas, dtypes, [a[s0:s0 + step] for a in args], n_pad)
-                mask = tail_mask(n_pad, counts_t[s0:s0 + step]).reshape(-1)
-                if has_del:
-                    dm = np.zeros((len(part), n_pad), dtype=bool)
-                    for j, e in enumerate(part):
-                        k = min(len(e[4]), n_pad)
-                        dm[j, :k] = e[4][:k]
-                    mask &= ~torch.from_numpy(dm.reshape(-1)).to(dev)
-                if filt is not None:
-                    # a BOOLEAN column filters as its 0/1 values
-                    fv, fm = filt.fn(cols, fparams)
-                    mask &= _rows(fv, mask.shape[0]).to(torch.bool)
-                    if fm is not None:
-                        mask &= _rows(fm, mask.shape[0])
-                yield ([e[0] for e in part], [e[1] for e in part], n_pad,
-                       mask, cols)
+            yield from self._pool_chunks(get.table, key, entries, dtypes,
+                                         filt, fparams)
 
     def _scan_batches(self, get, lits):
         """Device scan: yields (seg_ids, counts, (mask, cols)) per decoded
@@ -491,11 +524,79 @@ class DeviceScan:
 
     def _scan_agg_batches(self, get, lits, spec_entries, group_fns, dense,
                           params):
-        """Partials of every decoded chunk (pools in chunks)."""
-        for _ids, _counts, _n_pad, mask, cols in self._filtered_chunks(
-                get, lits):
-            yield _agg_partials(cols, mask, params, spec_entries, group_fns,
-                                dense)
+        """Partials of every decoded chunk (pools in chunks). With a mesh,
+        each pool of segments without a delete mask runs distributed
+        instead and yields its merged partials once (the JAX package sends
+        segments with a delete mask down its single-device path)."""
+        mesh = self.db.mesh
+        pools, dtypes, filt, fparams = self._scan_pools(get, lits)
+        for key, entries in pools.items():
+            if mesh is not None and not key[2]:
+                self.db.dist_stats["scan_agg"] += 1
+                yield self._distributed_pool(
+                    get.table, key, entries, dtypes, filt, fparams,
+                    spec_entries, group_fns, dense, params)
+                continue
+            for _ids, _counts, _n_pad, mask, cols in self._pool_chunks(
+                    get.table, key, entries, dtypes, filt, fparams):
+                yield _agg_partials(cols, mask, params, spec_entries,
+                                    group_fns, dense)
+
+    def _distributed_pool(self, table, key, entries, dtypes, filt, fparams,
+                          spec_entries, group_fns, dense, params):
+        """One pool's partials over the mesh: the pool pads to a power of
+        two, then to a multiple of the shard count, with zero-count copies
+        of its last segment; its stacked arguments shard over the mesh's
+        leading axis (cached on the segments' (serial, version) and the
+        shard count); each shard runs the pooled body over its slice, in
+        chunks; the shards' partials merge with psum / pmin / pmax (the
+        twin of the JAX package's _build_distributed_scan_agg_kernel)."""
+        mesh = self.db.mesh
+        dev = self.db.device
+        metas, n_pad, _has_del = key
+        n, n_dev = len(entries), mesh.size
+        n_padded = pmesh.pad_to_multiple(
+            max(1 << (n - 1).bit_length(), n_dev), n_dev)
+        cache = pool_cache(table)
+        stack_key = ("mesh", key, tuple(
+            (s.serial, s.version) for e in entries for s in e[2]),
+            n_padded, n_dev)
+        stacked = cache.get(stack_key)
+        if stacked is None:
+            counts = np.zeros(n_padded, np.int64)
+            counts[:n] = [e[1] for e in entries]
+            pad = [entries[-1][3]] * (n_padded - n)
+            args = [_stack([e[3][a] for e in entries] + [p[a] for p in pad],
+                           dev) for a in range(len(entries[0][3]))]
+            stacked = tuple(pmesh.shard_leading(mesh, t)
+                            for t in [torch.from_numpy(counts).to(dev)] + args)
+            cache.put(stack_key, stacked)
+        step = max(1, CHUNK_ROWS // n_pad)
+
+        def body(_shard, counts_s, *rest):
+            args_s, (fparams_s, params_s) = rest[:-2], rest[-2:]
+            out = None
+            for s0 in range(0, counts_s.shape[0], step):
+                mask, cols = _chunk(metas, dtypes, n_pad, filt, fparams_s,
+                                    counts_s[s0:s0 + step],
+                                    [a[s0:s0 + step] for a in args_s])
+                part = _agg_partials(cols, mask, params_s, spec_entries,
+                                     group_fns, dense)
+                out = list(part) if out is None else [
+                    agg_ops.merge_partials(_merge_kind(spec_entries[k][0]),
+                                           out[k], part[k])
+                    for k in range(len(part))]
+            return out
+
+        shards = coll.unzip(coll.shard_map(mesh, body, list(stacked),
+                                           [fparams, params]))
+        merged = []
+        for (kind, _f, _acc), xs in zip(spec_entries, shards):
+            mk = _merge_kind(kind)
+            reduce = (coll.psum if mk in ("sum", "count") else
+                      coll.pmin if mk == "min" else coll.pmax)
+            merged.append(reduce(xs)[0].to(dev))
+        return tuple(merged)
 
     def _aggregate_generic(self, node, get, lits, specs, finishers, dense):
         """The generic branch of _aggregate_over_scan: group keys and

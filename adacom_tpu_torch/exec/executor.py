@@ -29,8 +29,12 @@ executor, src/execution/physical_plan_generator.cpp). It carries:
   Aggregates over a join take the streamed pipeline, else the host
   aggregate.
 
-Every plan node the JAX package's executor routes is routed here. Its
-SPMD paths (a mesh) belong to the parallel layer (ROADMAP queue A item 7).
+Every plan node the JAX package's executor routes is routed here, and
+with a mesh (Database(mesh=...)) at the same decisions as the JAX
+package: the fused kernels B1-B3 and the streamed pipelines decline, the
+generic scan-aggregate runs distributed over the mesh's shards
+(exec/device_scan.py) and large equi-joins on unique build keys shuffle
+over it (exec/join.py, parallel/ops.py).
 """
 
 from __future__ import annotations
@@ -680,8 +684,8 @@ class Executor(DeviceScan, Join):
         fused device tiers first (ungrouped: B1, then B3; grouped over a
         dense domain: B2, then B3); the host aggregate over a host scan for
         non-dense domains, DISTINCT and holistic aggregates; the generic
-        device path for the rest. On a CUDA database a dense domain wider
-        than the fused tiers take runs on the host below
+        device path for the rest. On a CUDA database without a mesh a dense
+        domain wider than the fused tiers take runs on the host below
         device_agg_min_rows rows (the JAX package's TPU gate), and plans
         over UBIGINT run on the host (no exact device dtype)."""
         specs, finishers = self._agg_specs(node)
@@ -710,6 +714,7 @@ class Executor(DeviceScan, Join):
         if (grouped and dense is None) or distinct or holistic or \
                 declines(get, [*node.groups, *args]) or (
                     grouped and self.db.device.type == "cuda" and
+                    self.db.mesh is None and
                     dense[3] > grouped_scan.MAX_MULTI_GROUPS and
                     get.table.row_count() < self.config.device_agg_min_rows):
             mat = self._materialize_scan(get, lits)
@@ -728,6 +733,8 @@ class Executor(DeviceScan, Join):
                              specs, finishers) -> Optional[Mat]:
         if not getattr(self.config, "pallas_scan_enabled", False):
             return None
+        if self.db.mesh is not None:
+            return None  # mesh mode: the distributed pooled path scans
         if len(get.column_ids) != 1:
             return None
         ty = get.types[0]
@@ -858,6 +865,8 @@ class Executor(DeviceScan, Join):
         integer domain and an optional value-range filter (kernel B2)."""
         if not getattr(self.config, "pallas_scan_enabled", False):
             return None
+        if self.db.mesh is not None:
+            return None  # mesh mode: the distributed pooled path scans
         if len(node.groups) != 1:
             return None
         g = node.groups[0]
@@ -978,6 +987,8 @@ class Executor(DeviceScan, Join):
         .cpp + expression_executor.cpp, collapsed into the scan)."""
         if not getattr(self.config, "pallas_scan_enabled", False):
             return None
+        if self.db.mesh is not None:
+            return None  # mesh mode: the distributed pooled path scans
         grouped = bool(node.groups)
         if grouped:
             if dense is None:
@@ -1526,7 +1537,8 @@ class Executor(DeviceScan, Join):
                 for lv, rv in zip(left.valids, right.valids)]
         li, _ri = _hash_join_pairs(
             _row_identity(left.cols, left.valids, both),
-            _row_identity(rcols, right.valids, both), self.config)
+            _row_identity(rcols, right.valids, both), self.config,
+            db=self.db)
         in_right = np.zeros(left.nrows, dtype=bool)
         in_right[li] = True
         keep = ~in_right if node.op == "except" else in_right

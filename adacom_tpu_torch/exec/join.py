@@ -8,9 +8,11 @@ second module split out of the executor. The JAX package has no device
 join on one device (a device join lost to the native hash table at every
 size, DEVICE_JOIN_CURVE.md), so this is host code: numpy and the native
 C++ hash tables (native.JoinTable, native.hash_join_i64) over host
-batches, fed by the executor's scan tiers. Its mesh branches (the
-all_to_all shuffle join) belong to the parallel layer (ROADMAP queue A
-item 7) and are not here.
+batches, fed by the executor's scan tiers. With a mesh, the streamed
+probe and the streamed pipeline decline, and an equi-join of at least
+distributed_join_rows rows whose build keys are unique shuffles over the
+mesh (parallel/ops.make_distributed_join_rowids), falling back to the host
+join on duplicate build keys or bin overflow.
 
 Two departures from the JAX package, where it is not SQL:
 - a row whose join key holds a NULL matches nothing: inner and semi joins
@@ -22,9 +24,10 @@ Two departures from the JAX package, where it is not SQL:
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from adacom_tpu_torch import native
 from adacom_tpu_torch.sql import bound as b
@@ -97,7 +100,8 @@ class Join:
                                          left, lits)
             rkeys, rok = self._join_keys([re_ for _l, re_ in node.conditions],
                                          right, lits)
-            li, ri = _hash_join_pairs(lkeys, rkeys, self.config, lok, rok)
+            li, ri = _hash_join_pairs(lkeys, rkeys, self.config, lok, rok,
+                                      db=self.db)
 
         if node.residual is not None:
             # apply the residual to the matched pairs BEFORE computing the
@@ -215,6 +219,7 @@ class Join:
         """Static gates of the streamed probe pipeline."""
         return bool(
             getattr(self.config, "streaming_join_enabled", True)
+            and self.db.mesh is None
             and native.available()
             and node.conditions and node.residual is None
             and node.join_type in ("inner", "semi", "anti")
@@ -274,6 +279,9 @@ class Join:
         probe table's full column set is never materialized at once.
         Inner/semi/anti without residuals; returns None to fall back."""
         from adacom_tpu_torch.parallel.scheduler import TaskScheduler
+
+        if self.db.mesh is not None:
+            return None  # mesh mode: large joins shuffle over all_to_all
 
         get = node.left
         jt = node.join_type
@@ -452,6 +460,8 @@ class Join:
         amortized merges — the joined intermediate (TPC-H Q18's
         lineitem x orders x customer) never materializes at once."""
         if not getattr(self.config, "streaming_agg_sink_enabled", True):
+            return None
+        if self.db.mesh is not None:
             return None
         if not native.available() or \
                 not getattr(self.config, "streaming_join_enabled", True):
@@ -711,17 +721,20 @@ def _gather_rows(c: np.ndarray, idx: np.ndarray) -> np.ndarray:
 
 
 def _hash_join_pairs(lkeys: List[np.ndarray], rkeys: List[np.ndarray],
-                     config=None, lok=None, rok=None):
+                     config=None, lok=None, rok=None, db=None):
     """All matching (left_idx, right_idx) pairs for equi-keys (native
     chained hash table over exact or hash-combined keys, pairs verified).
     lok / rok mark the rows whose keys are all non-NULL (None: every row);
-    the other rows match nothing."""
+    the other rows match nothing. With a mesh on `db`, a join of at least
+    distributed_join_rows rows shuffles over it when its build keys are
+    unique (_distributed_join_pairs)."""
     if lok is not None or rok is not None:
         lsel = None if lok is None else np.flatnonzero(lok)
         rsel = None if rok is None else np.flatnonzero(rok)
         li, ri = _hash_join_pairs(
             lkeys if lsel is None else [k[lsel] for k in lkeys],
-            rkeys if rsel is None else [k[rsel] for k in rkeys], config)
+            rkeys if rsel is None else [k[rsel] for k in rkeys], config,
+            db=db)
         return (li if lsel is None else lsel[li],
                 ri if rsel is None else rsel[ri])
     # single integer key: the value IS the join key — no hashing and, with
@@ -742,6 +755,13 @@ def _hash_join_pairs(lkeys: List[np.ndarray], rkeys: List[np.ndarray],
         rk = _row_keys(rkeys)
         verify = lambda li, ri: _verify_join_pairs(  # noqa: E731
             lkeys, rkeys, li, ri)
+    mesh = getattr(db, "mesh", None)
+    dthresh = getattr(config, "distributed_join_rows", 0) if config else 0
+    if mesh is not None and dthresh and len(rk) and \
+            len(lk) + len(rk) >= dthresh:
+        pair = _distributed_join_pairs(db, mesh, lk, rk)
+        if pair is not None:
+            return verify(*pair)
     budget = getattr(config, "memory_limit", None) if config else None
     if budget and (len(lk) + len(rk)) * 24 > budget // 2:
         # out-of-core: grace-hash-partitioned join with disk-backed pair
@@ -772,6 +792,62 @@ def _hash_join_pairs(lkeys: List[np.ndarray], rkeys: List[np.ndarray],
     within = np.arange(total) - np.repeat(base, counts)
     ri = order[starts + within]
     return verify(li, ri)
+
+
+# make_distributed_join_rowids functions by (mesh, capacity)
+_DIST_JOIN_CACHE: Dict[tuple, Any] = {}
+
+
+def _distributed_join_pairs(db, mesh, lk: np.ndarray, rk: np.ndarray):
+    """Shuffle-join the (hashed or exact) uint64 keys over the mesh: the
+    (li, ri) candidate pairs, or None when ineligible (duplicate build
+    keys) or unsafe (bin overflow under skew), and the caller falls back
+    to the host join. Both sides pad to powers of two, as in the JAX
+    package (where that bounds recompilation)."""
+    from adacom_tpu_torch.parallel import mesh as pmesh
+    from adacom_tpu_torch.parallel import ops as pops
+
+    rk64 = rk.view(np.int64)
+    lk64 = lk.view(np.int64)
+    if len(np.unique(rk64)) != len(rk64):
+        return None  # duplicate build keys need run expansion: host path
+    n_dev = mesh.size
+
+    def padded_len(n):
+        p = 1 << max(1, (n - 1)).bit_length()
+        return pmesh.pad_to_multiple(max(p, n_dev), n_dev)
+
+    nb, npr = padded_len(len(rk64)), padded_len(len(lk64))
+    capacity = max(64, 4 * (max(nb, npr) // n_dev))
+    fkey = (mesh, capacity)
+    fn = _DIST_JOIN_CACHE.get(fkey)
+    if fn is None:
+        if len(_DIST_JOIN_CACHE) >= 16:
+            _DIST_JOIN_CACHE.clear()
+        fn = _DIST_JOIN_CACHE[fkey] = pops.make_distributed_join_rowids(
+            mesh, capacity)
+
+    def prep(keys, n_pad):
+        k = np.zeros(n_pad, np.int64)
+        k[: len(keys)] = keys
+        v = np.zeros(n_pad, bool)
+        v[: len(keys)] = True
+        r = np.zeros(n_pad, np.int64)
+        r[: len(keys)] = np.arange(len(keys))
+        return [pmesh.shard_leading(mesh, torch.from_numpy(a).to(db.device))
+                for a in (k, v, r)]
+
+    bk, bv, br = prep(rk64, nb)
+    pk, pv, pr = prep(lk64, npr)
+    matched, br_out, pr_out, ovf = fn(bk, bv, br, pk, pv, pr)
+    del bk, bv, br, pk, pv, pr
+    if int(ovf) > 0:
+        return None  # skewed bins overflowed: the host join is always safe
+    m = pmesh.gather_leading(matched)
+    li = pmesh.gather_leading(pr_out)[m].cpu().numpy()
+    ri = pmesh.gather_leading(br_out)[m].cpu().numpy()
+    db.dist_stats["join"] += 1
+    return li, ri
 
 
 def _verify_join_pairs(lkeys, rkeys, li, ri):

@@ -46,16 +46,24 @@ class CheckpointAbort(Exception):
 class Database:
     def __init__(self, path: Optional[str] = None,
                  config: Optional[DBConfig] = None,
-                 platform: Optional[str] = None):
+                 platform: Optional[str] = None, mesh=None):
         # path: checkpoint directory for persistence (None = in-memory,
         # like the reference's :memory: mode used by all succinct benchmarks)
         self.path = path
-        # engine event counters (the host scan records auto-index builds)
+        # engine event counters: the host scan records auto-index builds,
+        # the mesh paths their distributed scan-aggregates and joins
         self.dist_stats = {"scan_agg": 0, "join": 0, "topk": 0}
         self.config = config or DBConfig()
         if platform is not None:
             self.config.platform = platform
         self.device = resolve_device(self.config.platform)
+        # mesh: a parallel.mesh.Mesh of the database's device type; with
+        # one, scan-aggregates and large joins run over its shards
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"a mesh of {mesh.device_type} devices on a "
+                f"{self.device.type} database")
+        self.mesh = mesh
         self.buffer_manager = BufferManager(self.config, self.device)
         self.catalog = Catalog(self.config, self.buffer_manager)
         # plan cache: template key -> (statements, bound plan, meta)

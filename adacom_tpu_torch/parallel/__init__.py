@@ -1,3 +1,6 @@
-"""Host-side parallelism: the morsel task scheduler. The multi-device
-layer of the JAX package (parallel/ops.py, parallel/mesh.py) is not ported
-yet."""
+"""Parallelism: the morsel task scheduler (scheduler.py) and the
+multi-device layer, ported from the JAX package's parallel/: meshes and
+leading-axis sharding (mesh.py), the collectives over per-shard tensors
+(collectives.py) and the distributed operators (ops.py). With
+Database(mesh=...), the executor runs scan-aggregates and large equi-joins
+over a mesh's shards."""

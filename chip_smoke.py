@@ -115,7 +115,22 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
       made in 11d): each trace's device events and whether B3's kernel is
       named in it.
 
-Each main path (4, 5, 6, 9, 10b-d, 11) runs with the launch counts set to 0
+12. the multi-device layer, right after phase 11, on phase 9's tables and
+   sqlite answers:
+   a. adacom_tpu_torch.graft_entry: dryrun_multichip(4) on 4 virtual
+      shards of the card (SQL on Database(mesh=...), the scan-aggregate,
+      the all_to_all group-by, the combiner, the shuffle join, top-k and
+      the hash, each against NumPy), and entry() (B1) against its plain
+      version;
+   b. Database(mesh=make_virtual_mesh(4, card)), default config: the
+      eight tables at SF 1, compacted, the 22 queries (a cold and a hot
+      run each) equal to sqlite's; the distributed scan-aggregate and the
+      shuffle join ran (dist_stats), B1-B3 launched 0 times (the JAX
+      package declines them under a mesh); the peak extra device memory
+      under 16 GiB; each query's hot ms beside phase 9's. The times are
+      four shards' loop and copies on one card, not scaling.
+
+Each main path (4, 5, 6, 9, 10b-d, 11, 12b) runs with the launch counts set to 0
 just before it and read just after. The last two lines are the kernels'
 JSON record and the result line. `python3 chip_smoke.py --tpch-oracle SF`
 and `--clickbench-oracle SCALE` are the sqlite subprocesses (no card
@@ -2091,6 +2106,172 @@ def durable_path(data, want, hot_runs=1, platform="cuda"):
 
 # ---- 10. the benchmark surface ------------------------------------------------
 
+# ---- 12. the multi-device layer on the card ---------------------------------
+
+MESH_SHARDS = 4
+MESH_HOT = 1
+MESH_PEAK_LIMIT = 16 << 30  # the shuffle join's bins at SF 1 (PERF.md §6)
+
+
+def mesh_dryrun(platform="cuda"):
+    """Phase 12a: the port's graft entry: dryrun_multichip(4) on 4 virtual
+    shards of the card, and entry(), B1, against its plain version."""
+    from adacom_tpu_torch import graft_entry
+    from adacom_tpu_torch.ops import fused_scan
+
+    t0 = time.perf_counter()
+    line = graft_entry.dryrun_multichip(MESH_SHARDS, platform)
+    check("virtual shards" in line or platform != "cuda",
+          f"dryrun_multichip(4) on one card did not say so: {line}")
+    fn, args = graft_entry.entry(platform)
+    got, ref = fn(*args), fused_scan.scan_table_reference(*args)
+    check(tuple(got) == tuple(ref), f"entry(): {got} != plain {ref}")
+    # no fallback hides the device: too few cards, or a mesh of another
+    # device type than the database's, raise
+    import torch
+
+    import adacom_tpu_torch as att
+    from adacom_tpu_torch.parallel import mesh as pmesh
+
+    def refused(what, make):
+        try:
+            make()
+        except ValueError as e:
+            return f"{what}: {e}"
+        raise SmokeFailure(f"{what} was taken")
+
+    other = "cpu" if platform == "cuda" else "cuda"
+    refusals = [refused(f"a {other} mesh on a {platform} database",
+                        lambda: att.Database(platform=platform, mesh=(
+                            pmesh.make_virtual_mesh(2, other))))]
+    n_cards = torch.cuda.device_count()
+    if n_cards < MESH_SHARDS:
+        refusals.append(refused(
+            f"make_mesh({MESH_SHARDS}) on {n_cards} card(s)",
+            lambda: pmesh.make_mesh(MESH_SHARDS)))
+    phase("mesh dryrun", t0, f"{line}; entry() == plain version {got}; "
+          f"refused: {'; '.join(refusals)}")
+
+
+class Timer:
+    """Wraps an attribute of a module or class and adds each call's
+    seconds, the card synchronized after it, to `seconds` (the call itself
+    goes through unchanged)."""
+
+    def __init__(self, owner, name):
+        import torch
+
+        self.owner, self.name = owner, name
+        self.real = getattr(owner, name)
+        self.seconds = 0.0
+
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return self.real(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t
+
+        setattr(owner, name, timed)
+
+    def restore(self):
+        setattr(self.owner, self.name, self.real)
+
+
+def mesh_path(data, want, single, hot_runs=MESH_HOT, platform="cuda"):
+    """Phase 12b: TPC-H SF 1 (phase 9's tables and sqlite answers) on
+    Database(mesh=make_virtual_mesh(4, card)), default config: the load,
+    compaction, the 22 queries (a cold and hot_runs hot runs), each equal
+    to sqlite's; the distributed scan-aggregate and shuffle join ran, B1-B3
+    did not (the JAX package's routing under a mesh); the peak extra
+    device memory; each query's hot ms beside phase 9's (`single`), and
+    the hot run's seconds in the shuffle joins and the distributed
+    scan-aggregates."""
+    import torch
+
+    import adacom_tpu_torch as att
+    from adacom_tpu_torch.bench import tpch
+    from adacom_tpu_torch.exec import device_scan, join
+    from adacom_tpu_torch.parallel import mesh as pmesh
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    mark = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = pmesh.make_virtual_mesh(MESH_SHARDS, platform)
+    db = att.Database(platform=platform, mesh=mesh)
+    con = db.connect()
+    tpch.load_into_engine(con, data)
+    t_load = time.perf_counter() - t0
+    con.query("PRAGMA compact_all_segments")
+    n_rows = sum(len(next(iter(c.values()))) for c in data.values())
+    phase("mesh load", t0, f"TPC-H SF {TPCH9_SF}: {n_rows} rows on "
+          f"{mesh}, load {t_load:.1f} s, then PRAGMA compact_all_segments")
+    t_q = time.perf_counter()
+    cold_sum = hot_sum = single_sum = shuffle_sum = pool_sum = 0.0
+    shuffle = Timer(join, "_distributed_join_pairs")
+    pool = Timer(device_scan.DeviceScan, "_distributed_pool")
+    for qid in sorted(tpch.QUERIES):
+        sql = tpch.QUERIES[qid]
+        stats = dict(db.dist_stats)
+        t = time.perf_counter()
+        rows = _rows(con.query(sql).fetchall())
+        cold = time.perf_counter() - t
+        hot = []
+        in_shuffle, in_pool = shuffle.seconds, pool.seconds
+        for _ in range(hot_runs):
+            t = time.perf_counter()
+            again = _rows(con.query(sql).fetchall())
+            hot.append(time.perf_counter() - t)
+            check(again == rows, f"Q{qid} [mesh] hot run differs from cold")
+        in_shuffle = (shuffle.seconds - in_shuffle) * 1e3 / hot_runs
+        in_pool = (pool.seconds - in_pool) * 1e3 / hot_runs
+        shuffle_sum += in_shuffle
+        pool_sum += in_pool
+        check(_sql_equal(rows, want["tpch"][str(qid)],
+                         "ORDER BY" in sql),
+              f"Q{qid} [mesh]: {rows[:3]} != sqlite "
+              f"{want['tpch'][str(qid)][:3]}")
+        routes = {k: db.dist_stats[k] - stats.get(k, 0)
+                  for k in ("scan_agg", "join")}
+        hot_ms = statistics.median(hot) * 1e3
+        one = single[("compacted", qid)]["hot_ms"]
+        cold_sum += cold * 1e3
+        hot_sum += hot_ms
+        single_sum += one
+        print(f"[mesh Q{qid}] cold {cold * 1e3:.3f} ms; hot "
+              f"{'median of ' + str(hot_runs) + ' ' if hot_runs > 1 else ''}"
+              f"{hot_ms:.3f} ms; phase 9 on one device (compacted, hot "
+              f"median) {one:.3f} ms; distributed scan_agg "
+              f"{routes['scan_agg']}, join {routes['join']}; a hot run's "
+              f"shuffle joins {in_shuffle:.3f} ms, distributed "
+              f"scan-aggregates {in_pool:.3f} ms", flush=True)
+    shuffle.restore()
+    pool.restore()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - mark
+    b1, b2, b3, runs = _launches()
+    print(f"[mesh total] 22 queries: cold {cold_sum:.3f} ms, hot "
+          f"{hot_sum:.3f} ms (shuffle joins {shuffle_sum:.3f} ms, "
+          f"distributed scan-aggregates {pool_sum:.3f} ms); phase 9's hot "
+          f"medians {single_sum:.3f} ms; "
+          f"dist_stats {db.dist_stats}; launches B1 {b1}, B2 {b2}, B3 {b3}, "
+          f"generic runs {runs}; peak extra device memory {peak} B (limit "
+          f"{MESH_PEAK_LIMIT} B), resident segments "
+          f"{db.buffer_manager.device_bytes} B", flush=True)
+    check(db.dist_stats["scan_agg"] > 0 and db.dist_stats["join"] > 0,
+          f"the mesh paths did not run: {db.dist_stats}")
+    check(b1 == b2 == b3 == 0,
+          f"a fused kernel launched under a mesh: B1 {b1}, B2 {b2}, B3 {b3}")
+    check(peak < MESH_PEAK_LIMIT,
+          f"phase 12 peak extra device memory {peak} B")
+    phase("mesh queries", t_q, f"22 queries on {MESH_SHARDS} shards == "
+          f"sqlite; B1-B3 launched 0 times")
+    db.close()
+
+
 ROOFLINE_ROWS = 64e6
 HEADLINE_SCALE = 1.0  # bench.py's 100M rows
 SUCCINCT_SCALE = 0.01
@@ -2478,7 +2659,7 @@ def main() -> int:
         # ---- 9. the relational path: TPC-H SF 1, against sqlite -----------
         t0 = time.perf_counter()
         _zero_counts()
-        _records, tpch_data, tpch_want = relational_path(
+        tpch_records, tpch_data, tpch_want = relational_path(
             TPCH9_HOT, oracle=tpch_oracle_proc)
         phase("relational", t0, f"launches on this path: {_counts_line()}")
         check(grouped_scan.MULTI_LAUNCHES > 0, "phase 9 launched no B3")
@@ -2490,7 +2671,13 @@ def main() -> int:
         phase("durable", t0, f"launches on this path: {_counts_line()}")
         check(grouped_scan.MULTI_LAUNCHES > 0 and
               fused_scan.KERNEL_LAUNCHES > 0, "phase 11 skipped B3 or B1")
-        del tpch_data, tpch_want
+
+        # ---- 12. the multi-device layer: the twin dryrun, TPC-H on a mesh -
+        mesh_dryrun()
+        t0 = time.perf_counter()
+        mesh_path(tpch_data, tpch_want, tpch_records)
+        phase("mesh", t0, f"launches on this path: {_counts_line()}")
+        del tpch_data, tpch_want, tpch_records
 
         # ---- 10. the benchmark surface: headline, [succinct], ClickBench --
         headline_step()

@@ -18,6 +18,20 @@ from adacom_tpu.ops import codecs as jcodecs
 from adacom_tpu_torch import types as ttt
 from adacom_tpu_torch.ops import bitpack, codecs
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _cold_pallas_runner_caches():
+    """tests/test_pallas.py counts its Pallas runner caches' misses: leave
+    them cold for the modules that run after this one in the process."""
+    yield
+    from adacom_tpu.ops import pallas_scan
+
+    for f in vars(pallas_scan).values():
+        if hasattr(f, "cache_clear") and \
+                getattr(f, "__module__", None) == pallas_scan.__name__:
+            f.cache_clear()
+
+
 _RNG = np.random.default_rng(0xC0DEC)
 _I64 = np.iinfo(np.int64)
 

@@ -17,6 +17,20 @@ from adacom_tpu import types as _jtt  # noqa: F401  (enables jax x64)
 from adacom_tpu.ops import pallas_scan
 from adacom_tpu_torch.ops import bitpack, grouped_scan
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _cold_pallas_runner_caches():
+    """tests/test_pallas.py counts its Pallas runner caches' misses: leave
+    them cold for the modules that run after this one in the process."""
+    yield
+    from adacom_tpu.ops import pallas_scan
+
+    for f in vars(pallas_scan).values():
+        if hasattr(f, "cache_clear") and \
+                getattr(f, "__module__", None) == pallas_scan.__name__:
+            f.cache_clear()
+
+
 SEG_ROWS = [2048, 2048, 1500]           # ragged tail: fewer lanes, rows
 LANES = [bitpack.lanes_for(n) for n in SEG_ROWS]
 L = max(LANES)

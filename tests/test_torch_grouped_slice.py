@@ -16,6 +16,20 @@ from adacom_tpu_torch.bench import tpch as ttpch
 from adacom_tpu_torch.exec import executor as texecutor
 from adacom_tpu_torch.ops import grouped_scan
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _cold_pallas_runner_caches():
+    """tests/test_pallas.py counts its Pallas runner caches' misses: leave
+    them cold for the modules that run after this one in the process."""
+    yield
+    from adacom_tpu.ops import pallas_scan
+
+    for f in vars(pallas_scan).values():
+        if hasattr(f, "cache_clear") and \
+                getattr(f, "__module__", None) == pallas_scan.__name__:
+            f.cache_clear()
+
+
 Q1ISH = """
 SELECT rf, ls, sum(qty), sum(price), sum(price * (1 - disc)),
        sum(price * (1 - disc) * (1 + tax)), avg(qty), avg(disc), count(*)

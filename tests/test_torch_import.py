@@ -37,6 +37,26 @@ def test_port_import_loads_no_jax():
     assert proc.stdout.strip() == "[]"
 
 
+def test_parallel_and_graft_entry_load_no_jax():
+    """The multi-device layer and the entry points load neither JAX nor
+    the JAX package, also when the dryrun runs (on the CPU here)."""
+    code = (
+        "import sys\n"
+        "import adacom_tpu_torch.parallel.ops, adacom_tpu_torch.parallel.mesh\n"
+        "import adacom_tpu_torch.parallel.collectives\n"
+        "from adacom_tpu_torch import graft_entry\n"
+        "graft_entry.dryrun_multichip(2, 'cpu')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'adacom_tpu' or m.startswith('adacom_tpu.'))\n"
+        "print(bad)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "2 virtual shards on cpu" in proc.stdout
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_shell_module_help_loads_no_jax():
     """`python3 -m adacom_tpu_torch --help` prints the shell's usage; the
     run loads neither JAX nor the JAX package."""

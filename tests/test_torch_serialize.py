@@ -26,6 +26,19 @@ from adacom_tpu_torch.sql.serialize import (SerializeError, deserialize_plan,
                                             serialize_plan)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _cold_pallas_runner_caches():
+    """tests/test_pallas.py counts its Pallas runner caches' misses: leave
+    them cold for the modules that run after this one in the process."""
+    yield
+    from adacom_tpu.ops import pallas_scan
+
+    for f in vars(pallas_scan).values():
+        if hasattr(f, "cache_clear") and \
+                getattr(f, "__module__", None) == pallas_scan.__name__:
+            f.cache_clear()
+
+
 def _fill(con):
     con.query("CREATE TABLE t(k INTEGER, v BIGINT, s VARCHAR, x DOUBLE)")
     rng = np.random.default_rng(5)

@@ -24,6 +24,20 @@ import adacom_tpu_torch
 from adacom_tpu_torch.bench import tpch
 from adacom_tpu_torch.exec import device_scan
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _cold_pallas_runner_caches():
+    """tests/test_pallas.py counts its Pallas runner caches' misses: leave
+    them cold for the modules that run after this one in the process."""
+    yield
+    from adacom_tpu.ops import pallas_scan
+
+    for f in vars(pallas_scan).values():
+        if hasattr(f, "cache_clear") and \
+                getattr(f, "__module__", None) == pallas_scan.__name__:
+            f.cache_clear()
+
+
 PKGS = {"jax": adacom_tpu, "port": adacom_tpu_torch}
 
 
