@@ -22,6 +22,7 @@ import os
 import platform
 import shutil
 import subprocess
+import threading
 from typing import List
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -105,9 +106,19 @@ def find_nvcc() -> str:
     raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+_KERNELS_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
-    """The CUDA kernel library (built from csrc/ on first call)."""
+    """The CUDA kernel library (built from csrc/ on first call). The lock
+    makes a second first call (the warm-up thread's and a query's) wait for
+    the build instead of starting its own compilers."""
+    with _KERNELS_LOCK:
+        return _load_kernels()
+
+
+def _load_kernels() -> ctypes.CDLL:
     srcs = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
                   if f.endswith(".cu"))
     path = build_shared("adacom_kernels", srcs, [find_nvcc()] + NVCC_FLAGS)

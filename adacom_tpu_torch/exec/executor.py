@@ -957,6 +957,8 @@ class Executor(DeviceScan, Join):
                 sums += out[:, 0]
                 cnts += out[:, 1]
 
+        self.db.dist_stats["pallas_grouped_agg"] = \
+            self.db.dist_stats.get("pallas_grouped_agg", 0) + 1
         present = cnts > 0
         gidx = np.nonzero(present)[0]
         prim = []

@@ -24,6 +24,7 @@ import torch
 from adacom_tpu_torch.config import DBConfig
 from adacom_tpu_torch.catalog.catalog import Catalog
 from adacom_tpu_torch.storage.buffer import BufferManager
+from adacom_tpu_torch.utils.warmup import warm_in_background
 
 
 def resolve_device(platform: str) -> torch.device:
@@ -57,6 +58,9 @@ class Database:
         if platform is not None:
             self.config.platform = platform
         self.device = resolve_device(self.config.platform)
+        # the CUDA context and the kernel library load on a thread, so that
+        # no query pays for them (nothing on the CPU)
+        warm_in_background(self.device)
         # mesh: a parallel.mesh.Mesh of the database's device type; with
         # one, scan-aggregates and large joins run over its shards
         if mesh is not None and mesh.device_type != self.device.type:

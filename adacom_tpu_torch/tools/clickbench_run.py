@@ -20,13 +20,7 @@ import sys
 import time
 from typing import Callable, Optional
 
-
-def _counters() -> tuple:
-    from adacom_tpu_torch.exec import device_scan
-    from adacom_tpu_torch.ops import fused_scan, grouped_scan
-
-    return (fused_scan.KERNEL_LAUNCHES, grouped_scan.GROUPED_LAUNCHES,
-            grouped_scan.MULTI_LAUNCHES, device_scan.RUNS)
+from adacom_tpu_torch.tools import launch_counts, launches_since
 
 
 def run(scale: float, nruns: int = 3, platform: str = "cuda",
@@ -56,11 +50,11 @@ def run(scale: float, nruns: int = 3, platform: str = "cuda",
         queries, tsv = {}, []
         for qid in sorted(cb.QUERIES):
             sql = cb.QUERIES[qid]
-            before = _counters()
+            before = launch_counts()
             t = time.perf_counter()
             cold = con.query(sql).fetchall()
             cold_ms = (time.perf_counter() - t) * 1e3
-            deltas = [a - b for a, b in zip(_counters(), before)]
+            launches = launches_since(before)
             if oracle is not None and not cb.answers_equal(qid, cold,
                                                            oracle(qid)):
                 raise AssertionError(
@@ -79,8 +73,7 @@ def run(scale: float, nruns: int = 3, platform: str = "cuda",
             queries[qid] = {
                 "cold_ms": cold_ms, "hot_ms": hot,
                 "median_ms": statistics.median(hot) if hot else None,
-                "launches": dict(zip(("B1", "B2", "B3", "device_scan"),
-                                     deltas))}
+                "launches": launches}
             print(f"ClickBench_Q{qid:02d} cold {cold_ms:.3f} ms, hot "
                   f"median {queries[qid]['median_ms']} ms", file=log,
                   flush=True)

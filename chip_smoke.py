@@ -130,11 +130,29 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
       under 16 GiB; each query's hot ms beside phase 9's. The times are
       four shards' loop and copies on one card, not scaling.
 
-Each main path (4, 5, 6, 9, 10b-d, 11, 12b) runs with the launch counts set to 0
-just before it and read just after. The last two lines are the kernels'
-JSON record and the result line. `python3 chip_smoke.py --tpch-oracle SF`
-and `--clickbench-oracle SCALE` are the sqlite subprocesses (no card
-needed).
+13. the tools (adacom_tpu_torch/tools, utils/warmup.py), after phase 10d,
+   at cut sizes (PERF.md section 4):
+   a. Database() on the card in a fresh process starts the warm-up thread;
+      ensure_transfer_warm() returns with the kernel library loaded;
+   b. fuzz_differential, 300 random SELECTs (seed 0) at the default config
+      and on the device route, each against sqlite (answers computed by a
+      subprocess started before phase 10): 0 divergences, the device route
+      through the generic path;
+   c. fuzz_dml, 200 random DML ops (seed 0) in memory at both configs and
+      durable with a crash and a reopen: the final state equals sqlite's;
+   d. verify_sf1 and tpch_sf1 at TPC-H SF 0.1: 22/22 equal to sqlite, Q1
+      and Q6 launch B3;
+   e. grouped_agg_bench at 8M rows (B2), string_bench at 200,000 strings,
+      adaptive_overtime at 4M rows for 6 s (at least one policy round, the
+      thread stopped), record_suites for the ZipfScanOOM classes at scale
+      0.001 (each run verified) and q18_stream at SF 0.1 (the streamed
+      counter > 0 with the sink, 0 without).
+
+Each main path (4, 5, 6, 9, 10b-d, 11, 12b, 13) runs with the launch counts
+set to 0 just before it and read just after. The last two lines are the
+kernels' JSON record and the result line. `python3 chip_smoke.py
+--tpch-oracle SF`, `--clickbench-oracle SCALE` and `--fuzz-oracle SEED`
+are the sqlite subprocesses (no card needed).
 """
 
 from __future__ import annotations
@@ -2464,6 +2482,224 @@ def clickbench_step(oracle, scale):
     return res
 
 
+# ---- 13. the tools ---------------------------------------------------------
+
+# phase 13's sizes, cut from the tools' defaults for the time limit (PERF.md
+# section 4): the fuzzers at 300 queries / 200 ops (2,000 at full size),
+# TPC-H SF 0.1 (1), one hot run (3), 8M grouped rows (20M), 200,000
+# strings (2M), 4M rows for 6 s (20M for 30 s), the [succinct] scans at
+# scale 0.001 (0.02), Q18/Q21 at SF 0.1 (1)
+FUZZ_QUERIES = 300
+FUZZ_OPS = 200
+FUZZ_SEED = 0
+TOOLS_SF = 0.1
+GROUPED_ROWS = 8_000_000
+STRING_ROWS = 200_000
+OVERTIME_ROWS = 4_000_000
+OVERTIME_S = 6.0
+SUITES_SCALE = 0.001
+SUITES_PATTERN = "ZipfScanOOM"
+
+WARMUP_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+t0 = time.perf_counter()
+import adacom_tpu_torch as att
+from adacom_tpu_torch import build
+from adacom_tpu_torch.utils import warmup
+db = att.Database(platform=sys.argv[2])
+t_db = time.perf_counter() - t0
+started = [str(d) for d in warmup._threads]
+t1 = time.perf_counter()
+warm_s = warmup.ensure_transfer_warm(db.device)
+wait_s = time.perf_counter() - t1
+print(json.dumps({"database_s": t_db, "warm_s": warm_s, "wait_s": wait_s,
+                  "started": started, "device": str(db.device),
+                  "library": build.kernels.cache_info().currsize}))
+"""
+
+
+def fuzz_oracle(seed):
+    """Phase 13b's sqlite3 oracle (`python3 chip_smoke.py --fuzz-oracle
+    SEED`, a subprocess): the normalized answers to the seed's first
+    FUZZ_QUERIES queries as JSON."""
+    from adacom_tpu_torch.tools import fuzz_differential as fd
+
+    print(json.dumps(fd.oracle_answers(FUZZ_QUERIES, int(seed))))
+
+
+def warmup_step(platform="cuda"):
+    """13a: Database() in a fresh process starts the warm-up thread;
+    ensure_transfer_warm() returns its seconds with the kernel library
+    loaded."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", WARMUP_CHILD,
+         os.path.dirname(os.path.abspath(__file__)), platform],
+        capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"warm-up child failed: {r.stderr[-2000:]}")
+    w = json.loads(r.stdout.strip().splitlines()[-1])
+    if platform == "cuda":
+        check(len(w["started"]) == 1 and
+              w["started"][0].startswith(w["device"]) and w["library"] == 1,
+              f"warm-up: {w}")
+    phase("tools warm-up", t0, f"fresh process: Database() {w['database_s']:.3f}"
+          f" s, warm-up started for {w['started']}; it took {w['warm_s']} s, "
+          f"ensure_transfer_warm() waited {w['wait_s']:.3f} s; kernel "
+          f"library loaded: {w['library'] == 1}")
+    return w
+
+
+def fuzz_step(oracle_proc, platform="cuda"):
+    """13b and 13c: the differential fuzzer at the default config and on
+    the device route against sqlite (answers from `oracle_proc`), and the
+    DML fuzzer in memory at both configs and durable with a crash and a
+    reopen."""
+    from adacom_tpu_torch.tools import fuzz_differential as fd
+    from adacom_tpu_torch.tools import fuzz_dml
+
+    t0 = time.perf_counter()
+    out, err = oracle_proc.communicate(timeout=900)
+    check(oracle_proc.returncode == 0, f"fuzz oracle failed: {err[-2000:]}")
+    want = json.loads(out)
+    waited = time.perf_counter() - t0
+    res = {}
+    for name, cfg in (("default", None), ("device route", fd.DEVICE_ROUTE)):
+        t = time.perf_counter()
+        with open(os.devnull, "w") as quiet:
+            r = fd.run(FUZZ_QUERIES, FUZZ_SEED, platform, cfg,
+                       lambda i, _sql: want[i], log=quiet)
+        res[name] = r
+        check(r["queries"] == FUZZ_QUERIES and not r["divergences"],
+              f"fuzz_differential ({name}): {r['divergences'][:3]}")
+        print(f"[tools fuzz_differential {name}] {FUZZ_QUERIES} queries "
+              f"(seed {FUZZ_SEED}), 0 divergences from sqlite; routes "
+              f"{r['routes']}; {time.perf_counter() - t:.2f} s", flush=True)
+    check(res["device route"]["routes"]["device_scan"] > 0,
+          "the device route ran no device scan")
+    phase("tools fuzz_differential", t0, f"both configs agree with sqlite "
+          f"(waited {waited:.1f} s for its answers)")
+    t0 = time.perf_counter()
+    for name, durable, cfg in (("in memory", False, None),
+                               ("in memory, device route", False,
+                                fd.DEVICE_ROUTE),
+                               ("durable, crash and reopen", True, None)):
+        t = time.perf_counter()
+        r = fuzz_dml.run(FUZZ_OPS, FUZZ_SEED, durable, platform, cfg)
+        check(r["mismatch"] is None, f"fuzz_dml ({name}): {r['mismatch']}")
+        print(f"[tools fuzz_dml {name}] {FUZZ_OPS} ops (seed {FUZZ_SEED}), "
+              f"final state == sqlite's ({r['rows']} rows); routes "
+              f"{r['routes']}; {time.perf_counter() - t:.2f} s", flush=True)
+    phase("tools fuzz_dml", t0, "three runs, each equal to sqlite")
+    return res
+
+
+def tpch_tools_step(platform="cuda"):
+    """13d: verify_sf1 and tpch_sf1 at TOOLS_SF; all 22 answers equal
+    sqlite's and Q1/Q6 launch B3."""
+    from adacom_tpu_torch.tools import tpch_sf1, verify_sf1
+
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as quiet:
+        v = verify_sf1.run(TOOLS_SF, platform, log=quiet)
+    check(v["passed"] == v["total"] == 22,
+          f"verify_sf1: {[q for q, r in v['queries'].items() if not r['ok']]}"
+          f" differ from sqlite")
+    b3 = {q: v["queries"][q]["launches"]["B3"] for q in ("Q01", "Q06")}
+    engine = sum(r["engine_s"] for r in v["queries"].values())
+    oracle = sum(r["oracle_s"] for r in v["queries"].values())
+    phase("tools verify_sf1", t0, f"SF {TOOLS_SF}: 22/22 equal to sqlite; "
+          f"engine {engine:.3f} s, sqlite {oracle:.3f} s in sum; B3 launches "
+          f"{b3}")
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as quiet:
+        t = tpch_sf1.run(TOOLS_SF, 1, platform, log=quiet)
+    check(len(t["tsv"]) == 22, f"tpch_sf1: {len(t['tsv'])} TSV rows")
+    b3t = {q: t["launches"][q]["B3"] for q in (1, 6)}
+    if platform == "cuda":
+        check(min(b3.values()) > 0 and min(b3t.values()) > 0,
+              f"Q1/Q6 did not launch B3: {b3}, {b3t}")
+    phase("tools tpch_sf1", t0, f"SF {TOOLS_SF}, 1 hot run: {t['size']} B "
+          f"compacted; hot sum {t['total']:.3f} s (the reference system's "
+          f"SF 1 runtimes sum to {t['ref_total']:.2f} s); B3 launches "
+          f"{b3t}; on {t['device']}")
+    return v, t
+
+
+def small_tools_step(platform="cuda"):
+    """13e: grouped_agg_bench, string_bench, adaptive_overtime,
+    record_suites and q18_stream at small sizes, each checked."""
+    import io
+    import threading
+
+    from adacom_tpu_torch.tools import (adaptive_overtime, grouped_agg_bench,
+                                        q18_stream, record_suites,
+                                        string_bench)
+
+    t0 = time.perf_counter()
+    g = grouped_agg_bench.run(GROUPED_ROWS, platform)
+    on, off = g["engine_s"]["fused_on"], g["engine_s"]["fused_off"]
+    if platform == "cuda":
+        check(on["route"] == "b2_kernel", f"grouped_agg_bench: {g}")
+    phase("tools grouped_agg_bench", t0, f"{GROUPED_ROWS} rows, 6 groups, "
+          f"answers equal both ways and to numpy: {on['route']} "
+          f"{on['s'] * 1e3:.3f} ms, {off['route']} {off['s'] * 1e3:.3f} ms "
+          f"(best of 7); {g['backend']}")
+    t0 = time.perf_counter()
+    sb = string_bench.run(STRING_ROWS, platform)
+    for c in sb:
+        check(c["raw_bytes"] > c["dict_bytes"] >= c["dict_fsst_bytes"] or
+              c["distinct"] >= STRING_ROWS, f"string_bench: {c}")
+    phase("tools string_bench", t0, "; ".join(
+        f"{c['distinct']} distinct: raw {c['raw_bytes']} B, dict "
+        f"{c['dict_bytes']} B, dict+fsst {c['dict_fsst_bytes']} B (fsst "
+        f"{c['fsst_adopted']}), contains {c['scan_contains_s']}, eq "
+        f"{c['point_eq_s']}" for c in sb))
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as quiet:
+        a = adaptive_overtime.run(OVERTIME_ROWS, OVERTIME_S, platform, 2.0,
+                                  log=quiet)
+    alive = [t.name for t in threading.enumerate()
+             if t.name == "adacom-compaction"]
+    check(a["policy_rounds"] >= 1 and not alive,
+          f"adaptive_overtime: {a['policy_rounds']} rounds, threads {alive}")
+    phase("tools adaptive_overtime", t0, f"{OVERTIME_ROWS} rows for "
+          f"{OVERTIME_S} s: {a['lookups']} lookups, {a['policy_rounds']} "
+          f"policy rounds; all-packed {a['packed_bytes']} B, all-plain "
+          f"{a['plain_bytes']} B; last second {a['rows'][-2]!r}; the "
+          f"compaction thread stopped")
+    t0 = time.perf_counter()
+    rows = record_suites.run(SUITES_SCALE, 1, SUITES_PATTERN, platform,
+                             log=io.StringIO())
+    check(len(rows) == 3, f"record_suites: {rows}")
+    phase("tools record_suites", t0, f"scale {SUITES_SCALE}, pattern "
+          f"{SUITES_PATTERN!r}, each run verified: " + "; ".join(
+              repr(r) for r in rows[1:]))
+    t0 = time.perf_counter()
+    q = q18_stream.run(TOOLS_SF, platform)
+    check(q["on"]["streamed"] > 0 and q["off"]["streamed"] == 0,
+          f"q18_stream: {q['on']['streamed']} / {q['off']['streamed']}")
+    if platform == "cuda":
+        check(q["on"]["peak_extra_device_bytes"] is not None,
+              "q18_stream read no device memory")
+    phase("tools q18_stream", t0, f"SF {TOOLS_SF}: " + "; ".join(
+        f"{m}: Q18 mean {statistics.mean(q[m]['18']) * 1e3:.3f} ms, Q21 "
+        f"{statistics.mean(q[m]['21']) * 1e3:.3f} ms, peak RSS "
+        f"{q[m]['rss_mb']:.0f} MB, peak extra device memory "
+        f"{q[m]['peak_extra_device_bytes']} B, streamed "
+        f"{q[m]['streamed']}" for m in ("on", "off")))
+    return g, sb, a, rows, q
+
+
+def tools_path(fuzz_oracle_proc, platform="cuda"):
+    """Phase 13: the warm-up, the fuzzers, the TPC-H tools and the other
+    measurement tools on the card at cut sizes."""
+    warmup_step(platform)
+    fuzz_step(fuzz_oracle_proc, platform)
+    tpch_tools_step(platform)
+    small_tools_step(platform)
+
+
 def main() -> int:
     import torch
 
@@ -2642,7 +2878,7 @@ def main() -> int:
     # being timed (ClickBench's after phase 8 has freed t4's host arrays):
     # they compute while phases 8-10c run
     tpch_oracle_proc = start_oracle("--tpch-oracle", TPCH9_SF)
-    cb_oracle = None
+    cb_oracle = fuzz_oracle_proc = None
     try:
         # ---- 8. the generic device path -------------------------------------
         t0 = time.perf_counter()
@@ -2679,13 +2915,26 @@ def main() -> int:
         phase("mesh", t0, f"launches on this path: {_counts_line()}")
         del tpch_data, tpch_want, tpch_records
 
+        # the sqlite answers of phase 13b's fuzzer, computed while phase 10
+        # runs
+        fuzz_oracle_proc = start_oracle("--fuzz-oracle", FUZZ_SEED)
+
         # ---- 10. the benchmark surface: headline, [succinct], ClickBench --
         headline_step()
         succinct_step(SUCCINCT_SCALE)
         clickbench_step(cb_oracle, CB_SCALE)
+
+        # ---- 13. the tools: warm-up, fuzzers, TPC-H tools, the rest ------
+        t0 = time.perf_counter()
+        _zero_counts()
+        tools_path(fuzz_oracle_proc)
+        phase("tools", t0, f"launches on this path: {_counts_line()}")
+        check(min(_launches()) > 0, f"phase 13 skipped a device tier: "
+              f"{_counts_line()}")
     finally:
         stop(tpch_oracle_proc)
         stop(cb_oracle)
+        stop(fuzz_oracle_proc)
 
     check(min(b1_launches, b2_launches, b3_launches) > 0,
           f"a kernel was not launched on its main path: B1 {b1_launches}, "
@@ -2715,10 +2964,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["--tpch-oracle"], ["--clickbench-oracle"]):
+    if sys.argv[1:2] in (["--tpch-oracle"], ["--clickbench-oracle"],
+                         ["--fuzz-oracle"]):
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         oracle_of = {"--tpch-oracle": tpch_oracle,
-                     "--clickbench-oracle": clickbench_oracle}
+                     "--clickbench-oracle": clickbench_oracle,
+                     "--fuzz-oracle": fuzz_oracle}
         oracle_of[sys.argv[1]](float(sys.argv[2]))
         sys.exit(0)
     try:

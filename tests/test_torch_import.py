@@ -82,3 +82,28 @@ def test_shell_module_help_loads_no_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "--platform cuda|cpu" in proc.stdout
+
+
+TOOLS = ("fuzz_differential", "fuzz_dml", "verify_sf1", "tpch_sf1",
+         "record_suites", "grouped_agg_bench", "string_bench",
+         "adaptive_overtime", "q18_stream")
+
+
+def test_tools_and_warmup_load_no_jax():
+    """The device warm-up and every tool load neither JAX nor the JAX
+    package, also when a fuzzer and the warm-up run (on the CPU here)."""
+    code = (
+        "import sys\n"
+        "import adacom_tpu_torch.utils.warmup as w\n"
+        + "".join(f"import adacom_tpu_torch.tools.{t}\n" for t in TOOLS) +
+        "from adacom_tpu_torch.tools import fuzz_dml\n"
+        "assert w.ensure_transfer_warm('cpu') is None\n"
+        "assert fuzz_dml.run(20, 0, platform='cpu')['mismatch'] is None\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'adacom_tpu' or m.startswith('adacom_tpu.'))\n"
+        "print(bad)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
