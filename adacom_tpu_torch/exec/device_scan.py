@@ -254,8 +254,16 @@ def _agg_partials(cols, mask, params, spec_entries, group_fns, dense):
     n = mask.shape[0]
     dev = mask.device
     if dense is not None:
-        mins, strides, _sizes, domain = dense
-        keys = [_rows(gf(cols, params)[0], n) for gf in group_fns]
+        mins, strides, sizes, domain, nullable = dense
+        keys = []
+        for gf, mn, size, can_null in zip(group_fns, mins, sizes, nullable):
+            k, km = gf(cols, params)
+            k = _rows(k, n)
+            if can_null and km is not None:
+                # a NULL key takes the last slot of the key's range
+                k = torch.where(_rows(km, n), k.to(torch.int64),
+                                mn + size - 1)
+            keys.append(k)
         gid = agg_ops.dense_group_ids(keys, mins, strides, domain)
         # per-spec NULL arguments become neutral values, so the one filter
         # mask serves every scatter
@@ -366,13 +374,6 @@ def _init_empty_partials(spec_entries, dense):
             else:
                 outs.append(np.asarray(agg_ops._min_sentinel(acc), acc))
     return outs
-
-
-def _any_count_index(spec_entries):
-    for i, (kind, _, _) in enumerate(spec_entries):
-        if kind in ("count", "count_arg"):
-            return i
-    return None
 
 
 def declines(get, exprs=()) -> bool:
@@ -602,7 +603,8 @@ class DeviceScan:
         """The generic branch of _aggregate_over_scan: group keys and
         aggregate arguments compile once, every chunk's partials merge on
         the device, and one pull per dtype brings them to the host finish."""
-        from adacom_tpu_torch.exec.executor import Mat, _agg_finalize_row
+        from adacom_tpu_torch.exec.executor import (
+            Mat, _agg_finalize_row, _grouped_mat)
 
         global RUNS
         RUNS += 1
@@ -616,6 +618,13 @@ class DeviceScan:
             (kind, None if arg is None else arg_fns[id(arg)], acc)
             for kind, arg, acc, _d in specs
         ]
+        # a group exists when a row reaches it: its row count, from the
+        # query's count(*) or from a hidden one
+        rows_idx = next((i for i, e in enumerate(spec_entries)
+                         if e[0] == "count"), None)
+        if node.groups and rows_idx is None:
+            rows_idx = len(spec_entries)
+            spec_entries.append(("count", None, np.int64))
         params = device_args(tuple(p(lits) for p in comp.preps),
                              self.db.device)
 
@@ -641,23 +650,16 @@ class DeviceScan:
             cols, valids = _agg_finalize_row(node, out_vals)
             return Mat(list(node.names), list(node.types), dicts, cols, valids)
 
-        mins, strides, sizes, domain = dense
-        count_idx = _any_count_index(spec_entries)
-        present = (host[count_idx] > 0 if count_idx is not None
-                   else np.ones(domain, bool))
-        gidx = np.nonzero(present)[0]
+        mins, strides, sizes, _domain, nullable = dense
+        gidx = np.nonzero(host[rows_idx] > 0)[0]
         prim = [h[gidx] for h in host]
-        agg_cols = [f(prim) for f in finishers]
         cols: List[np.ndarray] = []
         valids: List[Optional[np.ndarray]] = []
         for gi, g in enumerate(node.groups):
-            vals = (gidx // strides[gi]) % sizes[gi] + mins[gi]
-            cols.append(vals.astype(compute_dtype_of(g.ty)))
-            valids.append(None)
-        for a, v in zip(node.aggregates, agg_cols):
-            arr = np.asarray(v)
-            if a.func in ("min", "max", "first") and arr.dtype.kind in "iu":
-                arr = arr.astype(compute_dtype_of(a.ty))
-            cols.append(arr)
-            valids.append(None)
-        return Mat(list(node.names), list(node.types), dicts, cols, valids)
+            slot = (gidx // strides[gi]) % sizes[gi]
+            cols.append((slot + mins[gi]).astype(compute_dtype_of(g.ty)))
+            ok = slot != sizes[gi] - 1 if nullable[gi] else None
+            valids.append(None if ok is None or ok.all() else ok)
+            if valids[-1] is not None:
+                cols[-1][~ok] = 0
+        return _grouped_mat(node, cols, valids, [f(prim) for f in finishers])

@@ -519,30 +519,41 @@ class Executor(DeviceScan, Join):
 
         Returns (specs, finishers): specs = [(kind, arg_expr|None, acc_dtype,
         distinct)], finishers map primitive partial values -> final
-        aggregate values."""
+        aggregate values. Ungrouped, a finisher gives a scalar or None (SQL
+        NULL); grouped, it gives (values, valid), valid None when every
+        group's value is valid. An aggregate over a group whose argument is
+        all NULL is NULL, except count, which is 0."""
+        grouped = bool(node.groups)
         specs: List[Tuple[str, Optional[b.BExpr], Any, bool]] = []
         finishers = []
+
+        def valid_where(ok):
+            return None if ok.all() else ok
+
         for a in node.aggregates:
-            if a.func == "count_star":
+            if a.func in ("count_star", "count", "approx_count_distinct"):
+                if a.func == "approx_count_distinct":
+                    spec = ("hll", a.arg, np.int64, False)
+                elif a.func == "count":
+                    spec = ("count_arg", a.arg, np.int64, a.distinct)
+                else:
+                    spec = ("count", None, np.int64, False)
                 si = len(specs)
-                specs.append(("count", None, np.int64, False))
-                finishers.append(lambda p, si=si: p[si])
-            elif a.func == "count":
-                si = len(specs)
-                specs.append(("count_arg", a.arg, np.int64, a.distinct))
-                finishers.append(lambda p, si=si: p[si])
+                specs.append(spec)
+                finishers.append(lambda p, si=si: (p[si], None) if grouped
+                                 else p[si])
             elif a.func == "sum":
                 acc = np.float64 if a.ty.is_float else np.int64
                 si = len(specs)
                 specs.append(("sum", a.arg, acc, a.distinct))
                 ci = len(specs)
                 specs.append(("count_arg", a.arg, np.int64, a.distinct))
-                # grouped: groups with zero non-null args keep sum 0 (SQL
-                # NULL-sum for all-null groups is a TODO with valid masks)
-                finishers.append(
-                    lambda p, si=si, ci=ci: p[si]
-                    if isinstance(p[ci], np.ndarray) else (p[si] if p[ci] > 0 else None)
-                )
+
+                def fin(p, si=si, ci=ci):
+                    if grouped:
+                        return p[si], valid_where(p[ci] > 0)
+                    return p[si] if p[ci] > 0 else None
+                finishers.append(fin)
             elif a.func == "avg":
                 si = len(specs)
                 specs.append(("sum", a.arg, np.float64, a.distinct))
@@ -552,24 +563,38 @@ class Executor(DeviceScan, Join):
 
                 def fin(p, si=si, ci=ci, scale=scale):
                     cnt = p[ci]
-                    if isinstance(cnt, np.ndarray):
-                        safe = np.where(cnt > 0, cnt, 1)
-                        return np.where(cnt > 0, (p[si] / scale) / safe, np.nan)
+                    if grouped:
+                        ok = cnt > 0
+                        return ((p[si] / scale) / np.where(ok, cnt, 1),
+                                valid_where(ok))
                     return (p[si] / scale) / cnt if cnt > 0 else None
                 finishers.append(fin)
-            elif a.func in ("min", "max"):
-                dt = compute_dtype_of(a.arg.ty)
-                acc = np.float64 if np.dtype(dt).kind == "f" else np.int64
+            elif a.func in ("min", "max", "first", "bool_and", "bool_or"):
+                if a.func in ("min", "max"):
+                    dt = compute_dtype_of(a.arg.ty)
+                    acc = np.float64 if np.dtype(dt).kind == "f" else np.int64
+                    kind = a.func
+                else:
+                    # first: a deterministic pick; bool_and/or: min/max of 0/1
+                    acc = np.int64
+                    kind = "max" if a.func == "bool_or" else "min"
                 si = len(specs)
-                specs.append((a.func, a.arg, acc, False))
+                specs.append((kind, a.arg, acc, False))
                 ci = len(specs)
-                specs.append(("count_arg", a.arg, np.int64, a.distinct))
+                specs.append(("count_arg", a.arg, np.int64, False))
+                is_bool = a.func.startswith("bool_")
 
-                def fin(p, si=si, ci=ci):
-                    cnt = p[ci]
-                    if isinstance(cnt, np.ndarray):
-                        return p[si]
-                    return p[si] if cnt > 0 else None
+                def fin(p, si=si, ci=ci, is_bool=is_bool):
+                    v = p[si]
+                    if grouped:
+                        ok = p[ci] > 0
+                        v = np.where(ok, v, np.zeros((), v.dtype))
+                        if is_bool:
+                            v = (v != 0).astype(np.uint32)
+                        return v, valid_where(ok)
+                    if p[ci] == 0:
+                        return None
+                    return (1 if v != 0 else 0) if is_bool else v
                 finishers.append(fin)
             elif a.func in ("stddev", "stddev_samp", "var_samp", "variance"):
                 si = len(specs)
@@ -582,24 +607,18 @@ class Executor(DeviceScan, Join):
 
                 def fin(p, si=si, qi=qi, ci=ci, is_std=is_std):
                     n = p[ci]
-                    if isinstance(n, np.ndarray):
-                        safe = np.where(n > 1, n, 2)
-                        var = (p[qi] - p[si] * p[si] / np.where(n > 0, n, 1)) / (safe - 1)
-                        var = np.where(n > 1, var, np.nan)
-                        return np.sqrt(var) if is_std else var
+                    if grouped:
+                        ok = n > 1
+                        var = (p[qi] - p[si] * p[si] / np.where(n > 0, n, 1)) \
+                            / (np.where(ok, n, 2) - 1)
+                        var = np.where(ok, var, 0.0)
+                        return (np.sqrt(np.maximum(var, 0.0)) if is_std
+                                else var), valid_where(ok)
                     if n <= 1:
                         return None
                     var = (p[qi] - p[si] * p[si] / n) / (n - 1)
                     return float(np.sqrt(var)) if is_std else float(var)
                 finishers.append(fin)
-            elif a.func == "first":
-                si = len(specs)
-                specs.append(("min", a.arg, np.int64, False))  # deterministic pick
-                finishers.append(lambda p, si=si: p[si])
-            elif a.func == "approx_count_distinct":
-                si = len(specs)
-                specs.append(("hll", a.arg, np.int64, False))
-                finishers.append(lambda p, si=si: p[si])
             elif a.func.startswith("quantile_"):
                 interp, qs = a.func.split(":")
                 interp = interp.rsplit("_", 1)[1]  # cont | disc
@@ -611,26 +630,14 @@ class Executor(DeviceScan, Join):
 
                 def fin(p, si=si, scale=scale):
                     v = p[si]
-                    if isinstance(v, np.ndarray):
-                        return v / scale if scale != 1.0 else v
+                    if grouped:
+                        ok = ~np.isnan(v)
+                        v = np.where(ok, v, 0.0)
+                        return (v / scale if scale != 1.0 else v,
+                                valid_where(ok))
                     if v is None or (isinstance(v, float) and np.isnan(v)):
                         return None
                     return v / scale if scale != 1.0 else v
-                finishers.append(fin)
-            elif a.func in ("bool_and", "bool_or"):
-                kind = "min" if a.func == "bool_and" else "max"
-                si = len(specs)
-                specs.append((kind, a.arg, np.int64, False))
-                ci = len(specs)
-                specs.append(("count_arg", a.arg, np.int64, False))
-
-                def fin(p, si=si, ci=ci):
-                    cnt = p[ci]
-                    if isinstance(cnt, np.ndarray):
-                        return (p[si] != 0).astype(np.uint32)
-                    if cnt == 0:
-                        return None
-                    return 1 if p[si] != 0 else 0
                 finishers.append(fin)
             else:
                 raise ExecError(f"aggregate {a.func}")
@@ -638,34 +645,40 @@ class Executor(DeviceScan, Join):
 
     def _group_domain(self, node: b.LogicalAggregate,
                       get: Optional[b.LogicalGet]):
-        """Dense-domain info (mins, strides, sizes, domain) for the group
-        keys, or None when some key has no small dense domain."""
+        """Dense-domain info (mins, strides, sizes, domain, nullable) for the
+        group keys, or None when some key has no small dense domain. A key
+        that can be NULL (a column with a validity mask in some segment, or
+        an expression) gets one more slot, the last of its size, for the
+        NULL group."""
         if get is not None:
             # seal staged appends first: zonemap stats only cover segments
             # (unflushed staging made the domain collapse to one group)
             get.table.flush()
-        mins, sizes = [], []
+        mins, sizes, nullable = [], [], []
         for g in node.groups:
+            col = None
+            if isinstance(g, b.BColumn) and get is not None:
+                col = get.table.columns[get.column_ids[g.index]]
+            nullable.append(col is None or any(
+                s._validity_np is not None for s in col.segments))
             if isinstance(g, b.BColumn) and g.dictionary is not None:
                 mins.append(0)
                 sizes.append(max(1, len(g.dictionary)))
-                continue
-            if g.ty.integer and get is not None and isinstance(g, b.BColumn):
-                col = get.table.columns[get.column_ids[g.index]]
+            elif g.ty.integer and col is not None:
                 if not col.segments:
                     mins.append(0)
                     sizes.append(1)
-                    continue
-                lo = min(s.vmin for s in col.segments)
-                hi = max(s.vmax for s in col.segments)
-                mins.append(int(lo))
-                sizes.append(int(hi - lo + 1))
-                continue
-            if g.ty is tt.BOOLEAN:
+                else:
+                    lo = min(s.vmin for s in col.segments)
+                    hi = max(s.vmax for s in col.segments)
+                    mins.append(int(lo))
+                    sizes.append(int(hi - lo + 1))
+            elif g.ty is tt.BOOLEAN:
                 mins.append(0)
                 sizes.append(2)
-                continue
-            return None
+            else:
+                return None
+            sizes[-1] += nullable[-1]
         domain = 1
         for s in sizes:
             domain *= s
@@ -677,7 +690,7 @@ class Executor(DeviceScan, Join):
             strides.append(acc)
             acc *= s
         strides.reverse()
-        return mins, strides, sizes, domain
+        return mins, strides, sizes, domain, nullable
 
     def _aggregate_over_scan(self, node, get: b.LogicalGet, lits) -> Mat:
         """Route an aggregate over a scan as the JAX package does: the
@@ -872,7 +885,7 @@ class Executor(DeviceScan, Join):
         g = node.groups[0]
         if not isinstance(g, b.BColumn):
             return None
-        mins_d, _strides, _sizes, domain = dense
+        mins_d, _strides, _sizes, domain, _nullable = dense
         if domain > grouped_scan.MAX_GROUPS or domain < 1:
             return None
         gi = g.index
@@ -967,15 +980,9 @@ class Executor(DeviceScan, Join):
                 prim.append(cnts[gidx])
             else:  # sum
                 prim.append(sums[gidx].astype(acc))
-        agg_cols = [f(prim) for f in finishers]
-        cols: List[np.ndarray] = [
-            (gidx + mins_d[0]).astype(compute_dtype_of(g.ty))]
-        valids: List[Optional[np.ndarray]] = [None]
-        for a, v in zip(node.aggregates, agg_cols):
-            cols.append(np.asarray(v))
-            valids.append(None)
-        dicts = getattr(node, "dicts", [None] * len(node.names))
-        return Mat(list(node.names), list(node.types), dicts, cols, valids)
+        return _grouped_mat(
+            node, [(gidx + mins_d[0]).astype(compute_dtype_of(g.ty))],
+            [None], [f(prim) for f in finishers])
 
     def _try_pallas_multi_agg(self, node, get: b.LogicalGet, lits,
                               specs, finishers, dense) -> Optional[Mat]:
@@ -995,7 +1002,7 @@ class Executor(DeviceScan, Join):
         if grouped:
             if dense is None:
                 return None
-            mins_d, strides, sizes, domain = dense
+            mins_d, strides, sizes, domain, _nullable = dense
         else:
             mins_d, strides, sizes, domain = [], [], [], 1
         if not (1 <= domain <= grouped_scan.MAX_MULTI_GROUPS):
@@ -1228,18 +1235,10 @@ class Executor(DeviceScan, Join):
         present = cnts > 0
         gidx = np.nonzero(present)[0]
         prim = [spec_prim(plan, gidx) for plan in spec_plans]
-        agg_cols = [f(prim) for f in finishers]
-        cols = []
-        valids = []
-        for gi, g in enumerate(node.groups):
-            vals = (gidx // strides[gi]) % sizes[gi] + mins_d[gi]
-            cols.append(vals.astype(compute_dtype_of(g.ty)))
-            valids.append(None)
-        for a, v in zip(node.aggregates, agg_cols):
-            cols.append(np.asarray(v))
-            valids.append(None)
-        dicts = getattr(node, "dicts", [None] * len(node.names))
-        return Mat(list(node.names), list(node.types), dicts, cols, valids)
+        return _grouped_mat(
+            node, [((gidx // strides[gi]) % sizes[gi] + mins_d[gi]).astype(
+                compute_dtype_of(g.ty)) for gi, g in enumerate(node.groups)],
+            [None] * len(node.groups), [f(prim) for f in finishers])
 
     def _aggregate_host(self, node: b.LogicalAggregate, mat: Mat, lits) -> Mat:
         """Host hash aggregate over a materialized batch (large domains,
@@ -1271,7 +1270,8 @@ class Executor(DeviceScan, Join):
             arr = np.asarray(v)
             if arr.ndim == 0:
                 arr = np.full(n, arr)
-            gvals.append((arr, None if m is None else np.asarray(m)))
+            gvals.append((arr, None if m is None else
+                          np.broadcast_to(np.asarray(m), (n,))))
         arg_map = {}
         k = len(node.groups)
         for kind, a, acc, _d in specs:
@@ -1284,9 +1284,8 @@ class Executor(DeviceScan, Join):
                 k += 1
 
         if node.groups:
-            key_arrays = [g[0] for g in gvals]
-            uniq, gid = _unique_rows(key_arrays)
-            n_groups = len(uniq[0]) if uniq else 0
+            uniq, gid = _group_rows(gvals)
+            n_groups = len(uniq[0][0]) if uniq else 0
         else:
             gid = np.zeros(n, dtype=np.int64)
             uniq = []
@@ -1357,10 +1356,17 @@ class Executor(DeviceScan, Join):
                     merged = vals.sum()
                 prim.append(np.asarray([merged]))
             return [], prim
-        keys = [np.concatenate([kp[g] for kp in keys_parts])
-                for g in range(ng)]
-        uniq, gid = _unique_rows(keys)
-        n_groups = len(uniq[0]) if uniq else 0
+        keys = []
+        for g in range(ng):
+            parts = [kp[g] for kp in keys_parts]
+            valid = None
+            if any(m is not None for _v, m in parts):
+                valid = np.concatenate([
+                    np.ones(len(v), bool) if m is None else m
+                    for v, m in parts])
+            keys.append((np.concatenate([v for v, _m in parts]), valid))
+        uniq, gid = _group_rows(keys)
+        n_groups = len(uniq[0][0]) if uniq else 0
         prim = []
         for si, (kind, _a, acc, _d) in enumerate(specs):
             v = np.concatenate([pp[si] for pp in prims_parts])
@@ -1388,20 +1394,9 @@ class Executor(DeviceScan, Join):
             dicts = getattr(node, "dicts", [None] * len(node.names))
             return Mat(list(node.names), list(node.types), dicts, cols, valids)
 
-        agg_cols = [f(prim) for f in finishers]
-        cols = list(uniq)
-        valids: List[Optional[np.ndarray]] = [None] * len(node.groups)
-        for a, v in zip(node.aggregates, agg_cols):
-            arr = np.asarray(v)
-            if a.func in ("min", "max", "first") and arr.dtype.kind in "iu":
-                arr = arr.astype(compute_dtype_of(a.ty))
-            elif a.func.startswith("quantile_disc") and \
-                    np.dtype(compute_dtype_of(a.ty)).kind in "iu":
-                arr = np.round(arr).astype(compute_dtype_of(a.ty))
-            cols.append(arr)
-            valids.append(None)
-        dicts = getattr(node, "dicts", [None] * len(node.names))
-        return Mat(list(node.names), list(node.types), dicts, cols, valids)
+        return _grouped_mat(node, [v for v, _m in uniq],
+                            [m for _v, m in uniq],
+                            [f(prim) for f in finishers])
 
     # ==================================================================
     # order / limit
@@ -1752,6 +1747,24 @@ def _fold_ranges(filters, lits):
     return {c: (r[0], r[1]) for c, r in ranges.items()}, empty
 
 
+def _grouped_mat(node, key_cols, key_valids, agg_outs) -> Mat:
+    """A grouped aggregate's result: the group key columns and their
+    validity, then each aggregate's (values, valid) from its finisher, in
+    the aggregate's type."""
+    cols, valids = list(key_cols), list(key_valids)
+    for a, (v, ok) in zip(node.aggregates, agg_outs):
+        arr = np.asarray(v)
+        if a.func in ("min", "max", "first") and arr.dtype.kind in "iu":
+            arr = arr.astype(compute_dtype_of(a.ty))
+        elif a.func.startswith("quantile_disc") and \
+                np.dtype(compute_dtype_of(a.ty)).kind in "iu":
+            arr = np.round(arr).astype(compute_dtype_of(a.ty))
+        cols.append(arr)
+        valids.append(ok)
+    dicts = getattr(node, "dicts", [None] * len(node.names))
+    return Mat(list(node.names), list(node.types), dicts, cols, valids)
+
+
 def _agg_finalize_row(node, out_vals):
     cols = []
     valids = []
@@ -1935,6 +1948,27 @@ def _order_preserving_u64(arr: np.ndarray) -> Optional[np.ndarray]:
         neg = (bits >> np.uint64(63)).astype(bool)
         return np.where(neg, ~bits, bits ^ np.uint64(1 << 63))
     return None
+
+
+def _group_rows(keys):
+    """GROUP BY factorization of keys given as (values, valid | None): the
+    rows whose key is NULL form a group of their own (the values under a
+    NULL read 0, beside the valid bit). Returns ([(values, valid | None)]
+    per key, one entry per group, and the rows' group ids)."""
+    arrays, nulls = [], []
+    for v, m in keys:
+        nulls.append(m is not None and not m.all())
+        if nulls[-1]:
+            arrays += [np.where(m, v, np.zeros((), v.dtype)),
+                       m.astype(np.uint8)]
+        else:
+            arrays.append(v)
+    uniq, gid = _unique_rows(arrays)
+    out, it = [], iter(uniq)
+    for has_null in nulls:
+        v = next(it)
+        out.append((v, next(it).astype(bool) if has_null else None))
+    return out, gid
 
 
 def _unique_rows(key_arrays: List[np.ndarray]):

@@ -145,14 +145,19 @@ def _fdiv(v, d: float):
 
 
 def _int_div(a, c, mod: bool):
-    """Integer a // c (mod: a % c), floor semantics; on tensors a zero
-    divisor gives 0, numpy's answer (torch raises on the CPU)."""
+    """Integer a / c (mod: a % c), truncated toward zero as in SQL (the
+    remainder takes the dividend's sign); a zero divisor gives 0."""
     if not isinstance(a, torch.Tensor) and not isinstance(c, torch.Tensor):
-        return a % c if mod else a // c
+        a, c = np.asarray(a), np.asarray(c)
+        zero = c == 0
+        safe = np.where(zero, np.ones((), c.dtype), c)
+        rem = np.fmod(a, safe)
+        out = rem if mod else (a - rem) // safe
+        return np.where(zero, np.zeros((), out.dtype), out)[()]
     zero = c == 0
     safe = torch.where(zero, torch.ones_like(c), c)
-    out = torch.remainder(a, safe) if mod else \
-        torch.div(a, safe, rounding_mode="floor")
+    out = torch.fmod(a, safe) if mod else \
+        torch.div(a, safe, rounding_mode="trunc")
     return torch.where(zero, torch.zeros_like(out), out)
 
 

@@ -63,8 +63,32 @@ class Join:
     # the materializing join
     # ------------------------------------------------------------------
     def _exec_join(self, node: b.LogicalJoin, lits) -> Mat:
-        left = right = None
-        if node.conditions:
+        if node.null_aware:
+            return self._exec_null_aware_anti(node, lits)
+        return self._exec_join_sides(node, lits)
+
+    def _exec_null_aware_anti(self, node: b.LogicalJoin, lits) -> Mat:
+        """NOT IN: the anti join, except that a NULL on the right keeps no
+        row, and a left row whose key is NULL survives only an empty right
+        side (where every left row survives)."""
+        right = self._exec(node.right, lits)
+        if right.nrows == 0:
+            out = self._exec(node.left, lits)
+            out.names = list(node.names)
+            return out
+        _rk, rok = self._join_keys([re_ for _l, re_ in node.conditions],
+                                   right, lits)
+        if rok is not None and not rok.all():
+            return Mat.empty_like(node)
+        out = self._exec_join_sides(node, lits, right)
+        _lk, lok = self._join_keys([le for le, _r in node.conditions], out,
+                                   lits)
+        return out if lok is None else out.take(np.nonzero(lok)[0])
+
+    def _exec_join_sides(self, node: b.LogicalJoin, lits,
+                         right: Optional[Mat] = None) -> Mat:
+        left = None
+        if node.conditions and right is None:
             # index join: probe the indexed base table with the other
             # side's keys instead of scanning it (whichever side the
             # build-side swap left it on)
@@ -479,7 +503,8 @@ class Join:
                 stages.append(("project", cur))
                 cur = cur.child
             elif isinstance(cur, b.LogicalJoin):
-                if (not cur.conditions or cur.join_type not in
+                if (not cur.conditions or cur.null_aware or
+                        cur.join_type not in
                         ("inner", "semi", "anti", "left")):
                     return None
                 if self._ij_eligible(cur, "right") or \

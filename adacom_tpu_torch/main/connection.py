@@ -441,11 +441,21 @@ class Connection:
     def _execute_delete(self, stmt: ast.DeleteStmt, lits=()):
         table = self.db.catalog.get_table(stmt.table)
         self._txn_touch(table)
-        if stmt.where is None:
+        if stmt.where is None and not self._in_txn:
             # truncate IN PLACE: indexes and views on the table survive
             # (the old drop-and-recreate silently lost UNIQUE enforcement)
             table.truncate()
             self._bump_catalog_version()
+            return None
+        if stmt.where is None:
+            # inside a transaction every row is deleted through the delete
+            # masks, which ROLLBACK restores (a truncate cannot be undone)
+            table.flush()
+            col0 = table.columns[table.column_order[0]]
+            updates = [(i, np.arange(s.count))
+                       for i, s in enumerate(col0.segments) if s.count]
+            if updates:
+                table.mark_deleted_many(updates)
             return None
         # collect matches first, publish once: the statement's delete masks
         # become visible to reader snapshots atomically

@@ -463,6 +463,22 @@ class Binder:
                 el = bind_post_agg(e.else_) if e.else_ is not None else None
                 ty = whens[0][1].ty if whens else (el.ty if el else tt.INTEGER)
                 return b.BCase(ty, whens, el)
+            if isinstance(e, ast.IsNull):
+                # e.g. HAVING sum(x) IS NULL: an aggregate over only NULLs
+                return b.BIsNull(tt.BOOLEAN, bind_post_agg(e.operand),
+                                 e.negated)
+            if isinstance(e, ast.InList):
+                return b.BInList(tt.BOOLEAN, bind_post_agg(e.operand),
+                                 [bind_post_agg(x) for x in e.items],
+                                 e.negated)
+            if isinstance(e, ast.Between):
+                o = bind_post_agg(e.operand)
+                both = b.BBinary(
+                    tt.BOOLEAN, "and",
+                    self._type_binary(">=", o, bind_post_agg(e.low)),
+                    self._type_binary("<=", o, bind_post_agg(e.high)))
+                return b.BUnary(tt.BOOLEAN, "not", both) if e.negated \
+                    else both
             if isinstance(e, ast.Literal):
                 return self._bind_literal(e)
             if isinstance(e, (ast.ScalarSubquery, ast.Exists, ast.InSubquery)):

@@ -237,6 +237,9 @@ class LogicalJoin(LogicalOp):
     conditions: List[Tuple[BExpr, BExpr]] = dataclasses.field(default_factory=list)
     # residual predicate over the combined schema (left cols then right cols)
     residual: Optional[BExpr] = None
+    # an anti join made from NOT IN: no row survives when the right side
+    # holds a NULL key, and a NULL left key survives only when it is empty
+    null_aware: bool = False
 
 
 @D

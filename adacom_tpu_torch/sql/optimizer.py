@@ -89,6 +89,7 @@ def push_filters(op: b.LogicalOp) -> b.LogicalOp:
                 names=list(child.names), types=list(child.types),
                 left=child, right=sub, join_type=jt,
                 conditions=[(c.operand, b.BColumn(sub.types[0], 0))],
+                null_aware=c.negated,
             )
             node.dicts = getattr(child, "dicts", [None] * len(child.names))
             child = node

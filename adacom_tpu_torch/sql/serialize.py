@@ -106,6 +106,9 @@ def _enc(v: Any, idx: _DictIndex):
             if isinstance(v, b.BSubquery) and f.name == "cached_value":
                 out["cached_value"] = None
                 continue
+            if isinstance(v, b.LogicalJoin) and f.name == "null_aware" \
+                    and not fv:
+                continue  # the JAX package's plans have no such field
             out[f.name] = _enc(fv, idx)
         dicts = getattr(v, "dicts", None)
         if dicts is not None:

@@ -247,7 +247,15 @@ class SortedIndex:
         for i, seg in enumerate(col.segments):
             if seg.count == 0 or vmax < seg.vmin or vmin > seg.vmax:
                 continue
-            sv, _ = self._entry(i)
+            sv, order = self._entry(i)
+            dm = self.table._deletes.get(i)
+            if dm is not None:
+                # a deleted row holds its key no more
+                deleted = np.zeros(len(order), bool)
+                deleted[:min(len(dm), len(order))] = dm[:len(order)]
+                sv = sv[~deleted[order]]
+                if not len(sv):
+                    continue
             pos = np.searchsorted(sv, nv, side="left")
             hit = (pos < len(sv)) & (sv[np.minimum(pos, len(sv) - 1)] == nv)
             if hit.any():

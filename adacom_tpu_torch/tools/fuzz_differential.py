@@ -9,12 +9,16 @@ took: the generic device path's runs, the B1/B2/B3 launches and the
 database's event counters.
 
     python3 -m adacom_tpu_torch.tools.fuzz_differential [N_QUERIES] [SEED] \\
-        [--platform cuda|cpu] [--route default|device|both]
+        [--platform cuda|cpu] [--route default|device|both] [--nulls FRACTION]
 
 `--route device` sets `DEVICE_ROUTE`: every aggregate and scan the device
 tiers accept runs on them, where the default config keeps a 20,000-row
 table on the host; `--route both` runs the two configs on one sqlite
-oracle. Exits 1 on a divergence, printing the SQL."""
+oracle. `--nulls FRACTION` (default 0, the reference's stream) makes that
+fraction of each column's values NULL, in both engines, with masks drawn
+from a generator of their own (the values and the SQL stay the seed's),
+and spells every ORDER BY item NULLS FIRST, as sqlite sorts them. Exits 1
+on a divergence, printing the SQL."""
 
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ SEGMENT_ROWS = 2048
 DEVICE_ROUTE = {"device_agg_min_rows": 0, "host_materialize": False,
                 "host_scan_segment_limit": 0}
 MAX_MISMATCHES = 5
+# the NULL masks' generator: seeded from the seed and this tag, apart from
+# the values' generator
+NULLS_STREAM = 0x4E554C4C
 
 
 def make_data(rng, n):
@@ -45,6 +52,15 @@ def make_data(rng, n):
                         dtype=object),
         "f": np.round(rng.normal(0, 50, n), 2),
     }
+
+
+def make_nulls(seed, n, fraction):
+    """Validity masks {column: valid} with `fraction` of each column of
+    make_data NULL, or None when fraction is 0."""
+    if not fraction:
+        return None
+    rng = np.random.default_rng([seed, NULLS_STREAM])
+    return {c: rng.random(n) >= fraction for c in ("a", "b", "c", "s", "f")}
 
 
 INT_COLS = ["a", "b", "c"]
@@ -67,7 +83,10 @@ def gen_pred(rng):
     return glue.join(parts)
 
 
-def gen_query(rng):
+def gen_query(rng, nulls_first=False):
+    """One random SELECT; with nulls_first every ORDER BY item is spelled
+    NULLS FIRST (the same draws, so the same query otherwise)."""
+    nf = " NULLS FIRST" if nulls_first else ""
     kind = rng.random()
     if kind < 0.4:
         aggs = ", ".join(
@@ -80,37 +99,38 @@ def gen_query(rng):
         agg = AGGS[rng.integers(1, len(AGGS))].format(
             c=INT_COLS[rng.integers(0, len(INT_COLS))])
         q = (f"SELECT {g}, count(*), {agg} FROM t WHERE {gen_pred(rng)} "
-             f"GROUP BY {g} ORDER BY {g}")
+             f"GROUP BY {g} ORDER BY {g}{nf}")
     elif kind < 0.9:
         q = (f"SELECT a, b FROM t WHERE {gen_pred(rng)} "
-             f"ORDER BY a, b, c LIMIT {int(rng.integers(1, 50))}")
+             f"ORDER BY a{nf}, b{nf}, c{nf} "
+             f"LIMIT {int(rng.integers(1, 50))}")
     elif kind < 0.92:
         q = (f"SELECT t1.b, count(*) FROM t t1 JOIN t t2 ON t1.b = t2.b "
              f"WHERE t1.a {CMP[rng.integers(0, 6)]} {int(rng.integers(-50, 50))} "
-             f"GROUP BY t1.b ORDER BY t1.b")
+             f"GROUP BY t1.b ORDER BY t1.b{nf}")
     elif kind < 0.94:
         # CTE + HAVING
         q = (f"WITH x AS (SELECT b, sum(a) AS sa, count(*) AS c FROM t "
              f"WHERE {gen_pred(rng)} GROUP BY b) "
              f"SELECT b, sa FROM x WHERE c > {int(rng.integers(1, 50))} "
-             f"ORDER BY b")
+             f"ORDER BY b{nf}")
     elif kind < 0.96:
         # window function over a filtered subset
-        q = (f"SELECT a, b, row_number() OVER (PARTITION BY b ORDER BY a, c)"
-             f" AS rn FROM t WHERE {gen_pred(rng)} ORDER BY a, b, c "
-             f"LIMIT 40")
+        q = (f"SELECT a, b, row_number() OVER (PARTITION BY b ORDER BY "
+             f"a{nf}, c{nf}) AS rn FROM t WHERE {gen_pred(rng)} "
+             f"ORDER BY a{nf}, b{nf}, c{nf} LIMIT 40")
     elif kind < 0.98:
         # set operation
         lo1, lo2 = int(rng.integers(-50, 0)), int(rng.integers(0, 50))
         op = ["UNION", "UNION ALL", "INTERSECT", "EXCEPT"][
             rng.integers(0, 4)]
         q = (f"SELECT b FROM t WHERE a < {lo1} {op} "
-             f"SELECT b FROM t WHERE a > {lo2} ORDER BY b")
+             f"SELECT b FROM t WHERE a > {lo2} ORDER BY b{nf}")
     else:
         # CASE + IN list aggregation
         vals = ", ".join(str(int(v)) for v in rng.integers(0, 10, 3))
         q = (f"SELECT CASE WHEN b IN ({vals}) THEN 1 ELSE 0 END AS k, "
-             f"count(*), sum(a) FROM t GROUP BY k ORDER BY k")
+             f"count(*), sum(a) FROM t GROUP BY k ORDER BY k{nf}")
     return q
 
 
@@ -170,15 +190,20 @@ def db_config(overrides: Optional[dict], segment_rows: int):
 
 class SqliteOracle:
     """sqlite on the fuzzer's table: `oracle(i, sql)` is query i's answer,
-    normalized, computed once (two configs of one seed share it)."""
+    normalized, computed once (two configs of one seed share it). `valid`:
+    make_nulls' masks, whose False values are NULL."""
 
-    def __init__(self, data: dict):
+    def __init__(self, data: dict, valid: Optional[dict] = None):
         self.lite = sqlite3.connect(":memory:")
         self.lite.execute("CREATE TABLE t(a INTEGER, b INTEGER, c INTEGER, "
                           "s TEXT, f REAL)")
-        self.lite.executemany("INSERT INTO t VALUES (?,?,?,?,?)", zip(
-            data["a"].tolist(), data["b"].tolist(), data["c"].tolist(),
-            data["s"].tolist(), data["f"].tolist()))
+        cols = []
+        for c in ("a", "b", "c", "s", "f"):
+            vals = data[c].tolist()
+            if valid is not None:
+                vals = [v if ok else None for v, ok in zip(vals, valid[c])]
+            cols.append(vals)
+        self.lite.executemany("INSERT INTO t VALUES (?,?,?,?,?)", zip(*cols))
         self.answers: dict = {}
 
     def __call__(self, i: int, sql: str) -> list:
@@ -187,19 +212,20 @@ class SqliteOracle:
         return self.answers[i]
 
 
-def stream(n_queries: int, seed: int):
+def stream(n_queries: int, seed: int, nulls: float = 0.0):
     """(data, [SQL]) of a seed: the table and the first n_queries queries,
-    drawn as `run` draws them."""
+    drawn as `run` draws them (with nulls, spelled for a NULL-bearing
+    table)."""
     rng = np.random.default_rng(seed)
     data = make_data(rng, N_ROWS)
-    return data, [gen_query(rng) for _ in range(n_queries)]
+    return data, [gen_query(rng, bool(nulls)) for _ in range(n_queries)]
 
 
-def oracle_answers(n_queries: int, seed: int) -> list:
+def oracle_answers(n_queries: int, seed: int, nulls: float = 0.0) -> list:
     """sqlite's normalized answers to a seed's first n_queries queries (what
     a separate oracle process computes)."""
-    data, queries = stream(n_queries, seed)
-    oracle = SqliteOracle(data)
+    data, queries = stream(n_queries, seed, nulls)
+    oracle = SqliteOracle(data, make_nulls(seed, N_ROWS, nulls))
     try:
         return [oracle(i, q) for i, q in enumerate(queries)]
     finally:
@@ -209,20 +235,22 @@ def oracle_answers(n_queries: int, seed: int) -> list:
 def run(n_queries: int = 300, seed: int = 0, platform: str = "cuda",
         config: Optional[dict] = None,
         oracle: Optional[Callable[[int, str], list]] = None,
-        log=sys.stdout) -> dict:
+        log=sys.stdout, nulls: float = 0.0) -> dict:
     """Fuzz `n_queries` SELECTs (seed `seed`) on a database on `platform`
     with the DBConfig fields in `config` set (segments of 2,048 rows, as
-    the reference). `oracle(i, sql)` gives query i's normalized expected
-    rows (default: sqlite in this process on the same table). Stops after
+    the reference), `nulls` of each column NULL (make_nulls). `oracle(i,
+    sql)` gives query i's normalized expected rows (default: sqlite in
+    this process on the same table). Stops after
     5 mismatches, as the reference does. Returns {"queries": queries run,
     "divergences": [{"i", "sql", "error" or "got"/"exp"}], "routes":
     routes()}."""
     import adacom_tpu_torch as att
 
-    data, queries = stream(n_queries, seed)
+    data, queries = stream(n_queries, seed, nulls)
+    valid = make_nulls(seed, N_ROWS, nulls)
     own = oracle is None
     if own:
-        oracle = SqliteOracle(data)
+        oracle = SqliteOracle(data, valid)
     db = att.Database(config=db_config(config, SEGMENT_ROWS),
                       platform=platform)
     try:
@@ -230,7 +258,7 @@ def run(n_queries: int = 300, seed: int = 0, platform: str = "cuda",
         con.query("CREATE TABLE t(a INTEGER, b INTEGER, c BIGINT, "
                   "s VARCHAR, f DOUBLE)")
         app = con.appender("t")
-        app.append_columns(data)
+        app.append_columns(data, valid)
         app.close()
         db.catalog.get_column_segment_catalog().compact_all_segments()
         bad, mismatches, done = [], 0, 0
@@ -267,16 +295,19 @@ def main(argv=None) -> int:
     ap.add_argument("--platform", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--route", choices=("default", "device", "both"),
                     default="default")
+    ap.add_argument("--nulls", type=float, default=0.0, metavar="FRACTION")
     args = ap.parse_args(argv)
     configs = {"default": None, "device": DEVICE_ROUTE}
     names = list(configs) if args.route == "both" else [args.route]
-    oracle = SqliteOracle(stream(0, args.seed)[0])
+    oracle = SqliteOracle(stream(0, args.seed)[0],
+                          make_nulls(args.seed, N_ROWS, args.nulls))
     bad = 0
     for name in names:
         res = run(args.n_queries, args.seed, args.platform, configs[name],
-                  oracle)
+                  oracle, nulls=args.nulls)
         bad += len(res["divergences"])
-        print(f"{args.n_queries} queries ({name} route), "
+        print(f"{args.n_queries} queries ({name} route, nulls "
+              f"{args.nulls}), "
               f"{len(res['divergences'])} divergences; routes "
               f"{res['routes']}", flush=True)
     return 1 if bad else 0

@@ -34,6 +34,13 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    answer held against the host tier and against numpy;
 6. grouped aggregate (B2): 100M rows of t3(g INTEGER, v INTEGER), 12
    groups, a plain and a filtered GROUP BY held against numpy;
+   b. SQL NULL semantics of GROUP BY: t3's NULL-free count/sum/avg still
+   launches B2 and equals numpy; t5(g INTEGER, v INTEGER), 100M rows from a seed, 12 keys
+   plus 5% NULL keys, one key whose v is all NULL and 10% NULL v elsewhere;
+   GROUP BY g with count(*), count(v), sum, min, max and avg against numpy
+   on the generic device path (100M rows), the host aggregate and 4
+   virtual shards of the card (an 8M-row prefix each), each route printed
+   as dist_stats and the launch counters show it;
 7. timing: each kernel alone, its wrapper and its plain version at its
    main path's shape (CUDA events), after the launch counts were read,
    with its bound (the bytes it must move at 3.35 TB/s). No single PyTorch
@@ -136,8 +143,9 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
       ensure_transfer_warm() returns with the kernel library loaded;
    b. fuzz_differential, 300 random SELECTs (seed 0) at the default config
       and on the device route, each against sqlite (answers computed by a
-      subprocess started before phase 10): 0 divergences, the device route
-      through the generic path;
+      subprocess started before phase 10), on the NULL-free table and on
+      one with 10% of each column NULL (--nulls 0.1): 0 divergences, the
+      device route through the generic path;
    c. fuzz_dml, 200 random DML ops (seed 0) in memory at both configs and
       durable with a crash and a reopen: the final state equals sqlite's;
    d. verify_sf1 and tpch_sf1 at TPC-H SF 0.1: 22/22 equal to sqlite, Q1
@@ -148,7 +156,7 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
       0.001 (each run verified) and q18_stream at SF 0.1 (the streamed
       counter > 0 with the sink, 0 without).
 
-Each main path (4, 5, 6, 9, 10b-d, 11, 12b, 13) runs with the launch counts
+Each main path (4, 5, 6, 6b, 9, 10b-d, 11, 12b, 13) runs with the launch counts
 set to 0 just before it and read just after. The last two lines are the
 kernels' JSON record and the result line. `python3 chip_smoke.py
 --tpch-oracle SF`, `--clickbench-oracle SCALE` and `--fuzz-oracle SEED`
@@ -848,6 +856,7 @@ def b2_path(hot_runs, n_rows=T3_ROWS):
         t_cold = time.perf_counter() - t
         check(grouped_scan.GROUPED_LAUNCHES > before, "t3 skipped the B2 kernel")
         cnt, sm = want()
+        full = (cnt, sm)
         check([int(r[0]) for r in got] == list(range(T3_GROUPS)),
               f"t3 groups {[r[0] for r in got]}")
         for r in got:
@@ -881,7 +890,178 @@ def b2_path(hot_runs, n_rows=T3_ROWS):
     phase("t3-groupby", t0, f"GROUP BY g and WHERE v in [{lo}, {hi}) == "
           f"numpy; cold {t_cold * 1e3:.1f} ms; hot median of {hot_runs} "
           f"{t_hot * 1e3:.3f} ms")
-    return dict(cold=t_cold, hot=t_hot, calls=list(rec.calls), db=db)
+    return dict(cold=t_cold, hot=t_hot, calls=list(rec.calls), db=db,
+                want=full)
+
+
+T5_ROWS = 100_000_000
+T5_PREFIX = 8 << 20  # the host aggregate's and the mesh's rows
+T5_GROUPS = 12
+T5_STRIDE = 3  # keys 0, 3, ..., 33: a 35-slot domain with the NULL slot
+T5_ALL_NULL = 6  # the key whose v is all NULL
+T5_SQL = ("SELECT g, count(*), count(v), sum(v), min(v), max(v), avg(v) "
+          "FROM t5 GROUP BY g")
+
+
+def _t5_data(n_rows):
+    """t5's columns from a seed: 12 keys plus 5% NULL keys; key 6's v all
+    NULL, 10% of the other v NULL."""
+    import numpy as np
+
+    rng = np.random.default_rng(0x75)
+    g = (rng.integers(0, T5_GROUPS, n_rows) * T5_STRIDE).astype(np.int32)
+    v = rng.integers(-10**6, 10**6, n_rows).astype(np.int32)
+    g_ok = rng.random(n_rows) >= 0.05
+    v_ok = (rng.random(n_rows) >= 0.1) & (g != T5_ALL_NULL)
+    return g, v, g_ok, v_ok
+
+
+def _t5_want(g, v, g_ok, v_ok):
+    """T5_SQL's rows by numpy (bincount over the arrays), keyed by g (None:
+    the NULL key): (count(*), count(v), sum(v), min(v), max(v))."""
+    import numpy as np
+
+    slot = np.where(g_ok, g // T5_STRIDE, T5_GROUPS)
+    cnt = np.bincount(slot, minlength=T5_GROUPS + 1)
+    vcnt = np.bincount(slot, weights=v_ok, minlength=T5_GROUPS + 1)
+    vsum = np.bincount(slot[v_ok], weights=v[v_ok].astype(np.float64),
+                       minlength=T5_GROUPS + 1)
+    want = {}
+    for k in range(T5_GROUPS + 1):
+        sel = v[(slot == k) & v_ok]
+        key = None if k == T5_GROUPS else k * T5_STRIDE
+        want[key] = (int(cnt[k]), int(vcnt[k]), int(vsum[k]),
+                     int(sel.min()) if len(sel) else None,
+                     int(sel.max()) if len(sel) else None)
+    check(int(vsum.max()) < 2**53 and int(vsum.min()) > -2**53,
+          "t5 sums past float64's integers")
+    return want
+
+
+def _t5_check(got, want, what):
+    check(len(got) == len(want), f"{what}: {len(got)} groups != "
+                                 f"{len(want)}")
+    for row in got:
+        key = None if row[0] is None else int(row[0])
+        check(key in want, f"{what}: unexpected group {row[0]}")
+        c, vc, sm, mn, mx = want[key]
+        vals = [int(x) if x is not None else None for x in row[1:6]]
+        check(vals == [c, vc, sm if vc else None, mn, mx],
+              f"{what}: group {key}: {row} != numpy {want[key]}")
+        if vc:
+            check(_close(float(row[6]), sm / vc, 1e-12),
+                  f"{what}: group {key} avg {row[6]}")
+        else:
+            check(row[6] is None, f"{what}: group {key} avg {row[6]}")
+    check(any(r[0] is None for r in got) and
+          any(r[3] is None for r in got), f"{what}: no NULL group")
+
+
+def _t5_db(g, v, g_ok, v_ok, platform, mesh=None):
+    import adacom_tpu_torch as att
+
+    db = att.Database(platform=platform, mesh=mesh)
+    con = db.connect()
+    con.query("CREATE TABLE t5(g INTEGER, v INTEGER)")
+    app = con.appender("t5")
+    for start in range(0, len(g), CHUNK):
+        sl = slice(start, start + CHUNK)
+        app.append_columns({"g": g[sl], "v": v[sl]},
+                           {"g": g_ok[sl], "v": v_ok[sl]})
+    app.close()
+    db.catalog.get_column_segment_catalog().compact_all_segments()
+    return db, con
+
+
+def _t5_run(db, con, what, want, hot_runs):
+    """T5_SQL cold and hot on one route, against numpy; returns the cold
+    run's route (dist_stats' increments and the launches) and times."""
+    before_stats, before = dict(db.dist_stats), _launches()
+    t = time.perf_counter()
+    got = con.query(T5_SQL).fetchall()
+    cold = time.perf_counter() - t
+    route = {k: v - before_stats.get(k, 0) for k, v in db.dist_stats.items()
+             if v != before_stats.get(k, 0)}
+    route.update(zip(("B1", "B2", "B3", "device_scan"),
+                     (a - b for a, b in zip(_launches(), before))))
+    _t5_check(got, want, what)
+    hot = []
+    for _ in range(hot_runs):
+        t = time.perf_counter()
+        again = con.query(T5_SQL).fetchall()
+        hot.append(time.perf_counter() - t)
+        check(again == got, f"{what}: a hot run differs")
+    return route, cold, statistics.median(hot) if hot else None
+
+
+def t5_path(t3_con, t3_want, hot_runs=3, n_rows=T5_ROWS, prefix=T5_PREFIX,
+            platform="cuda"):
+    """Phase 6b: SQL NULL semantics of GROUP BY at 100M rows. t5(g, v):
+    12 keys plus 5% NULL keys, one key whose v is all NULL, 10% NULL v
+    elsewhere; T5_SQL on the generic device path (the default config at
+    100M rows), the host aggregate (default config, an 8M-row prefix: below
+    device_agg_min_rows with a 35-slot domain) and 4 virtual shards of the
+    card (the same prefix), each against numpy; the NULL-free twin on t3
+    still launches B2 and equals numpy (t3_want: phase 6's per-group
+    counts and sums)."""
+    from adacom_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    b2 = _launches()[1]
+    twin = t3_con.query("SELECT g, count(*), count(v), sum(v), avg(v) FROM "
+                        "t3 GROUP BY g").fetchall()
+    b2 = _launches()[1] - b2
+    check(b2 > 0 or platform != "cuda", f"t3's NULL-free twin: {b2} B2 "
+          "launches")
+    cnt, sm = t3_want
+    twin = sorted(twin, key=lambda r: int(r[0]))
+    check([tuple(int(x) for x in r[:4]) for r in twin]
+          == [(i, int(cnt[i]), int(cnt[i]), int(sm[i]))
+              for i in range(T3_GROUPS)],
+          f"t3's NULL-free twin: {twin} != numpy")
+    for r in twin:
+        check(_close(float(r[4]), sm[int(r[0])] / cnt[int(r[0])], 1e-12),
+              f"t3's NULL-free twin: group {r[0]} avg {r[4]}")
+    g, v, g_ok, v_ok = _t5_data(n_rows)
+    want = _t5_want(g, v, g_ok, v_ok)
+    db, con = _t5_db(g, v, g_ok, v_ok, platform)
+    phase("t5-load", t0, f"{n_rows} rows, {T5_GROUPS} keys + "
+          f"{int((~g_ok).sum())} NULL keys, key {T5_ALL_NULL}'s v all NULL, "
+          f"{int((~v_ok).sum())} NULL v; numpy's answer ready; t3's "
+          f"NULL-free twin == numpy, launched B2 {b2} time(s)")
+    lines = []
+    try:
+        t0 = time.perf_counter()
+        route, cold, hot = _t5_run(db, con, "t5 generic", want, hot_runs)
+        check(route["device_scan"] > 0 and not route["B2"] and
+              not route["B3"], f"t5 generic route: {route}")
+        lines.append(f"generic path {n_rows} rows: cold {cold * 1e3:.1f} ms, "
+                     f"hot median of {hot_runs} {hot * 1e3:.3f} ms, route "
+                     f"{route}")
+    finally:
+        db.close()
+    del db, con
+    pg, pv, pgo, pvo = g[:prefix], v[:prefix], g_ok[:prefix], v_ok[:prefix]
+    want = _t5_want(pg, pv, pgo, pvo)
+    for name, mesh in (("host aggregate", None),
+                       ("4 virtual shards",
+                        pmesh.make_virtual_mesh(4, platform))):
+        db, con = _t5_db(pg, pv, pgo, pvo, platform, mesh)
+        try:
+            route, cold, hot = _t5_run(db, con, f"t5 {name}", want, 1)
+        finally:
+            db.close()
+        if mesh is None:
+            check(route["device_scan"] == 0 and sum(
+                route[k] for k in ("B1", "B2", "B3")) == 0 and
+                not route.get("scan_agg"), f"t5 host route: {route}")
+        else:
+            check(route.get("scan_agg", 0) > 0,
+                  f"t5 mesh route: {route}")
+        lines.append(f"{name} {prefix} rows: cold {cold * 1e3:.1f} ms, hot "
+                     f"{hot * 1e3:.3f} ms, route {route}")
+    phase("t5 GROUP BY with NULLs", t0, "== numpy on every route; " +
+          "; ".join(lines))
 
 
 def time_grouped(calls, ms_iters=20, plain_iters=3):
@@ -2492,6 +2672,7 @@ def clickbench_step(oracle, scale):
 FUZZ_QUERIES = 300
 FUZZ_OPS = 200
 FUZZ_SEED = 0
+FUZZ_NULLS = 0.1  # the NULL fraction of the fuzzer's second table
 TOOLS_SF = 0.1
 GROUPED_ROWS = 8_000_000
 STRING_ROWS = 200_000
@@ -2522,10 +2703,13 @@ print(json.dumps({"database_s": t_db, "warm_s": warm_s, "wait_s": wait_s,
 def fuzz_oracle(seed):
     """Phase 13b's sqlite3 oracle (`python3 chip_smoke.py --fuzz-oracle
     SEED`, a subprocess): the normalized answers to the seed's first
-    FUZZ_QUERIES queries as JSON."""
+    FUZZ_QUERIES queries as JSON, on the NULL-free table ("plain") and on
+    the one with FUZZ_NULLS of each column NULL ("nulls")."""
     from adacom_tpu_torch.tools import fuzz_differential as fd
 
-    print(json.dumps(fd.oracle_answers(FUZZ_QUERIES, int(seed))))
+    print(json.dumps({
+        "plain": fd.oracle_answers(FUZZ_QUERIES, int(seed)),
+        "nulls": fd.oracle_answers(FUZZ_QUERIES, int(seed), FUZZ_NULLS)}))
 
 
 def warmup_step(platform="cuda"):
@@ -2552,7 +2736,8 @@ def warmup_step(platform="cuda"):
 
 def fuzz_step(oracle_proc, platform="cuda"):
     """13b and 13c: the differential fuzzer at the default config and on
-    the device route against sqlite (answers from `oracle_proc`), and the
+    the device route against sqlite (answers from `oracle_proc`), on the
+    NULL-free table and on one with FUZZ_NULLS of each column NULL, and the
     DML fuzzer in memory at both configs and durable with a crash and a
     reopen."""
     from adacom_tpu_torch.tools import fuzz_differential as fd
@@ -2564,20 +2749,26 @@ def fuzz_step(oracle_proc, platform="cuda"):
     want = json.loads(out)
     waited = time.perf_counter() - t0
     res = {}
-    for name, cfg in (("default", None), ("device route", fd.DEVICE_ROUTE)):
-        t = time.perf_counter()
-        with open(os.devnull, "w") as quiet:
-            r = fd.run(FUZZ_QUERIES, FUZZ_SEED, platform, cfg,
-                       lambda i, _sql: want[i], log=quiet)
-        res[name] = r
-        check(r["queries"] == FUZZ_QUERIES and not r["divergences"],
-              f"fuzz_differential ({name}): {r['divergences'][:3]}")
-        print(f"[tools fuzz_differential {name}] {FUZZ_QUERIES} queries "
-              f"(seed {FUZZ_SEED}), 0 divergences from sqlite; routes "
-              f"{r['routes']}; {time.perf_counter() - t:.2f} s", flush=True)
-    check(res["device route"]["routes"]["device_scan"] > 0,
-          "the device route ran no device scan")
+    for table, nulls in (("plain", 0.0), ("nulls", FUZZ_NULLS)):
+        for name, cfg in (("default", None),
+                          ("device route", fd.DEVICE_ROUTE)):
+            t = time.perf_counter()
+            with open(os.devnull, "w") as quiet:
+                r = fd.run(FUZZ_QUERIES, FUZZ_SEED, platform, cfg,
+                           lambda i, _sql, a=want[table]: a[i], log=quiet,
+                           nulls=nulls)
+            res[name, table] = r
+            check(r["queries"] == FUZZ_QUERIES and not r["divergences"],
+                  f"fuzz_differential ({name}, nulls {nulls}): "
+                  f"{r['divergences'][:3]}")
+            print(f"[tools fuzz_differential {name}, nulls {nulls}] "
+                  f"{FUZZ_QUERIES} queries (seed {FUZZ_SEED}), 0 "
+                  f"divergences from sqlite; routes {r['routes']}; "
+                  f"{time.perf_counter() - t:.2f} s", flush=True)
+        check(res["device route", table]["routes"]["device_scan"] > 0,
+              "the device route ran no device scan")
     phase("tools fuzz_differential", t0, f"both configs agree with sqlite "
+          f"on both tables "
           f"(waited {waited:.1f} s for its answers)")
     t0 = time.perf_counter()
     for name, durable, cfg in (("in memory", False, None),
@@ -2871,6 +3062,11 @@ def main() -> int:
           f"B: kernel {b2_ms:.4f} ms = {nbytes / b2_ms / 1e6:.1f} GB/s; "
           f"{_bound_line(bb, b2_ms)}; wrapper {b2_wrapper:.4f} ms; plain version {b2_plain_ms:.3f} ms; "
           f"hot query {t3['hot'] * 1e3:.3f} ms")
+    # ---- 6b. GROUP BY over NULLs at 100M rows on three routes -----------
+    t0 = time.perf_counter()
+    _zero_counts()
+    t5_path(t3["db"].connect(), t3["want"])
+    phase("t5 nulls", t0, f"launches on this path: {_counts_line()}")
     t3["db"].close()
     del t3["db"]
 

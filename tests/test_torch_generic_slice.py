@@ -430,12 +430,13 @@ def test_boolean_unsigned_and_narrow_types():
         n = 5 * SEG_ROWS
         rng = np.random.default_rng(0)
         app = con.appender("t")
-        app.append_columns({
+        data = {
             "b": (rng.random(n) > 0.5).astype(np.uint8),
             "x": rng.integers(-100, 100, n).astype(np.int32),
             "u": rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
             "y": rng.integers(-300, 300, n).astype(np.int16),
-            "z": rng.random(n).astype(np.float32)})
+            "z": rng.random(n).astype(np.float32)}
+        app.append_columns(data)
         app.close()
         _compact(db)
         pairs.append((db, con))
@@ -447,7 +448,20 @@ def test_boolean_unsigned_and_narrow_types():
             "sum(y) FROM t WHERE x <> 0",
             "SELECT sum(abs(x)), sum(round(z * 10)), min(sqrt(u)), "
             "sum(CAST(x AS DOUBLE) / 7) FROM t"):
-        _same(pairs[1][1].query(sql).fetchall(),
-              pairs[0][1].query(sql).fetchall())
+        got = pairs[1][1].query(sql).fetchall()
+        if "x / 3" not in sql:
+            _same(got, pairs[0][1].query(sql).fetchall())
+            continue
+        # integer / and % truncate toward zero in SQL; the JAX package
+        # rounds down (ROADMAP queue C), so numpy holds this one
+        k = data["x"] != 0
+        x = data["x"][k].astype(np.int64)
+        want = (2 * int(data["u"][k].astype(np.int64).sum()),
+                int(((x - np.fmod(x, 3)) // 3).sum()),
+                int(np.fmod(x, 7).sum()), 2 * float(data["z"][k].max()),
+                int(data["y"][k].astype(np.int64).sum()))
+        assert len(got) == 1 and len(got[0]) == len(want)
+        for g, w in zip(got[0], want):
+            assert g == w, (got, want)
     for db, _con in pairs:
         db.close()

@@ -27,6 +27,15 @@ N = 20_000
 SEG_ROWS = 4096  # several segments plus a ragged tail
 
 
+def _t2(rng):
+    """t2's values and validity."""
+    vals = rng.integers(-50_000, 50_000, N).astype(np.int32)
+    vals[SEG_ROWS:2 * SEG_ROWS] = 777
+    valid = rng.random(N) > 0.25
+    valid[SEG_ROWS:2 * SEG_ROWS] = True
+    return vals, valid
+
+
 def _load(mod, **db_kw):
     cfg = mod.DBConfig()
     cfg.segment_rows = SEG_ROWS
@@ -39,10 +48,7 @@ def _load(mod, **db_kw):
     app.close()
     # signed values with NULLs, and a constant block (a width-0 segment)
     con.query("CREATE TABLE t2(i INTEGER)")
-    vals = rng.integers(-50_000, 50_000, N).astype(np.int32)
-    vals[SEG_ROWS:2 * SEG_ROWS] = 777
-    valid = rng.random(N) > 0.25
-    valid[SEG_ROWS:2 * SEG_ROWS] = True
+    vals, valid = _t2(rng)
     app = con.appender("t2")
     app.append_column("i", vals, valid)
     app.close()
@@ -82,11 +88,35 @@ def engines():
     tdb.close()
 
 
+# the JAX package is not SQL here (ROADMAP queue C): its % rounds down and
+# its GROUP BY puts the NULL keys in the group of the value stored under
+# them, so sqlite on the same t2 holds the port
+SQLITE_HELD = {"SELECT i % 5 AS g, count(*), sum(i), min(i) FROM t2 "
+               "GROUP BY g ORDER BY g"}
+
+
+def _sqlite_t2():
+    import sqlite3
+
+    vals, valid = _t2(np.random.default_rng(0xD1CE))
+    lite = sqlite3.connect(":memory:")
+    lite.execute("CREATE TABLE t2(i INTEGER)")
+    lite.executemany("INSERT INTO t2 VALUES (?)", [
+        (int(v) if ok else None,) for v, ok in zip(vals, valid)])
+    return lite
+
+
 @pytest.mark.parametrize("sql", QUERIES)
 def test_same_answers_as_reference(engines, sql):
     jcon, tcon = engines
-    ref = jcon.query(sql).fetchall()
     got = tcon.query(sql).fetchall()
+    if sql in SQLITE_HELD:
+        want = _sqlite_t2().execute(sql.replace(
+            "ORDER BY g", "ORDER BY g NULLS LAST")).fetchall()
+        assert [tuple(None if x is None else int(x) for x in r)
+                for r in got] == want
+        return
+    ref = jcon.query(sql).fetchall()
     assert got == ref
     assert [tuple(type(x) for x in r) for r in got] == \
         [tuple(type(x) for x in r) for r in ref]
