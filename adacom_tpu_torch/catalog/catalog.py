@@ -8,12 +8,13 @@ process-global static; here per-database)."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from adacom_tpu_torch import types as tt
 from adacom_tpu_torch.catalog.segment_catalog import ColumnSegmentCatalog
 from adacom_tpu_torch.storage.index import SortedIndex
 from adacom_tpu_torch.storage.table import Table
+from adacom_tpu_torch.storage.wal import RecordGroup
 
 
 class CatalogException(Exception):
@@ -40,8 +41,15 @@ class Catalog:
         return self.segment_catalog
 
     def create_table(
-        self, name: str, columns: List[tuple], if_not_exists: bool = False
+        self, name: str, columns: List[tuple], if_not_exists: bool = False,
+        unique: Sequence[Tuple[str, str]] = (),
+        fill: Optional[Callable[[Table], None]] = None,
     ) -> Table:
+        """`unique`: [(index name, column)] of the UNIQUE indexes of the
+        table's PRIMARY KEY / UNIQUE constraints (an index name that exists
+        is skipped); `fill(table)` appends the rows of CREATE TABLE AS.
+        The table, its indexes and its rows reach the WAL in one write (one
+        marked group), and the table is published only after all of it."""
         key = name.lower()
         with self._lock:
             if key in self.tables or key in self.views:
@@ -49,11 +57,27 @@ class Catalog:
                     return self.tables[key]
                 raise CatalogException(f"table {name!r} already exists")
             t = Table(key, columns, self.config, self.bm, self.segment_catalog)
-            if self.wal is not None:
-                self.wal.log_create_table(key, [
+            group = None if self.wal is None else RecordGroup()
+            if group is not None:
+                group.log_create_table(key, [
                     (c, ty.name, ty.precision, ty.scale) for c, ty in columns
                 ])
-                t.wal = self.wal
+            t.wal = group
+            indexes = {}
+            for iname, col in unique:
+                iname = iname.lower()
+                if iname in self.indexes or iname in indexes:
+                    continue
+                idx = indexes[iname] = self._new_index(iname, t, col, True)
+                t.indexes.append(idx)
+                if group is not None:
+                    group.log_create_index(iname, key, idx.column, True)
+            if fill is not None:
+                fill(t)
+            if group is not None:
+                self.wal.write_group(group)
+            t.wal = self.wal
+            self.indexes.update(indexes)
             self.tables[key] = t
             return t
 
@@ -110,18 +134,24 @@ class Catalog:
                     return self.indexes[key]
                 raise CatalogException(f"index {name!r} already exists")
             table = self.get_table(table_name)
-            col = column.lower()
-            for part in col.split(","):
-                if part.strip() not in table.columns:
-                    raise CatalogException(
-                        f"column {part.strip()!r} not in table {table_name!r}")
-            idx = SortedIndex(key, table, col, unique)
-            idx.build()  # raises ConstraintViolation on existing duplicates
+            idx = self._new_index(key, table, column, unique)
             self.indexes[key] = idx
             table.indexes.append(idx)
             if self.wal is not None:
-                self.wal.log_create_index(key, table.name, col, unique)
+                self.wal.log_create_index(key, table.name, idx.column, unique)
             return idx
+
+    @staticmethod
+    def _new_index(key: str, table: Table, column: str,
+                   unique: bool) -> SortedIndex:
+        col = column.lower()
+        for part in col.split(","):
+            if part.strip() not in table.columns:
+                raise CatalogException(
+                    f"column {part.strip()!r} not in table {table.name!r}")
+        idx = SortedIndex(key, table, col, unique)
+        idx.build()  # raises ConstraintViolation on existing duplicates
+        return idx
 
     def drop_index(self, name: str, if_exists: bool = False) -> None:
         key = name.lower()

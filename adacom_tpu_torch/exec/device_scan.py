@@ -397,15 +397,17 @@ class DeviceScan:
     """The executor's generic device path (mixed into exec.executor's
     Executor, whose snapshot, zonemap and filter helpers it uses)."""
 
-    def _scan_pools(self, get, lits):
+    def _scan_pools(self, get, lits, snap=None):
         """The candidate segments of a scan grouped into pools, and what
         decoding and filtering them takes: (pools, dtypes, filt, fparams),
         pools mapping (metas, n_pad, has_del) to the entries
         (segment index, rows, segments, decoder arguments, delete mask).
-        Callers route a scan that declines() to the host tier first."""
+        Reads the pinned snapshot `snap`, or pins one. Callers route a scan
+        that declines() to the host tier first."""
         if declines(get):
             raise ValueError("a UBIGINT scan reached the generic device path")
-        snap = self._pin_snapshot(get.table)
+        if snap is None:
+            snap = self._pin_snapshot(get.table)
         filt = self._compiled_filter(get)
         fparams = (device_args(filt.prep_args(lits), self.db.device)
                    if filt is not None else ())
@@ -464,21 +466,23 @@ class DeviceScan:
                                 [a[s0:s0 + step] for a in args], dels)
             yield [e[0] for e in part], [e[1] for e in part], n_pad, mask, cols
 
-    def _filtered_chunks(self, get, lits):
+    def _filtered_chunks(self, get, lits, snap=None):
         """Every pool of a scan through _pool_chunks."""
-        pools, dtypes, filt, fparams = self._scan_pools(get, lits)
+        pools, dtypes, filt, fparams = self._scan_pools(get, lits, snap)
         for key, entries in pools.items():
             yield from self._pool_chunks(get.table, key, entries, dtypes,
                                          filt, fparams)
 
-    def _scan_batches(self, get, lits):
+    def _scan_batches(self, get, lits, snap=None):
         """Device scan: yields (seg_ids, counts, (mask, cols)) per decoded
         chunk, with the mask and each column's values and validity shaped
-        (n, n_pad) for the chunk's n segments. (The JAX package yields one
-        segment at a time.)"""
+        (n, n_pad) for the chunk's n segments, over the pinned snapshot
+        `snap` where given. (The JAX package yields one segment at a
+        time.)"""
         global RUNS
         RUNS += 1
-        for ids, counts, n_pad, mask, cols in self._filtered_chunks(get, lits):
+        for ids, counts, n_pad, mask, cols in self._filtered_chunks(get, lits,
+                                                                    snap):
             n = len(ids)
             yield ids, counts, (mask.reshape(n, n_pad), [
                 (v.reshape(n, n_pad), None if m is None else m.reshape(n, n_pad))

@@ -300,27 +300,11 @@ class Executor(DeviceScan, Join):
                 idxo = table.index_on(get.column_ids[p[0]])
                 if idxo is None and self.config.auto_index_threshold and \
                         len(candidates) >= 4:
-                    # adaptive auto-index: repeated selective eq probes on
-                    # a column whose zonemaps can't prune (e.g. the
-                    # FBWorkload prefix-random u64 trace scans EVERY
-                    # segment per lookup) earn a SortedIndex — the
-                    # access-counter adaptivity of the segment catalog,
-                    # applied to point lookups
-                    colo = table.columns[get.column_ids[p[0]]]
-                    probes = getattr(colo, "_eq_probe_count", 0) + 1
-                    colo._eq_probe_count = probes
-                    if probes >= self.config.auto_index_threshold:
-                        from adacom_tpu_torch.storage.index import SortedIndex
-
-                        idxo = SortedIndex(
-                            f"__auto_{table.name}_{colo.name}", table,
-                            colo.name)
-                        idxo.build()
-                        table.indexes.append(idxo)
-                        self.db.dist_stats["auto_index_built"] = \
-                            self.db.dist_stats.get("auto_index_built", 0) + 1
+                    idxo = self._auto_index(table, get.column_ids[p[0]], snap)
                 if idxo is not None:
-                    index_hits = dict(idxo.lookup_eq(p[2]))
+                    # hits from the pinned snapshot's segments, so a
+                    # segment resealed larger since adds no row to them
+                    index_hits = dict(idxo.lookup_eq(p[2], snap))
                     candidates = [i for i in candidates if i in index_hits]
         def scan_morsel(i):
             """One segment = one morsel (reference NextParallelScan hands
@@ -389,6 +373,35 @@ class Executor(DeviceScan, Join):
 
         return TaskScheduler.get().map_segments(
             scan_morsel, candidates, threads=self.config.threads)
+
+    def _auto_index(self, table, col_name, snap):
+        """Adaptive auto-index: repeated selective eq probes on a column
+        whose zonemaps can't prune (e.g. the FBWorkload prefix-random u64
+        trace scans EVERY segment per lookup) earn a SortedIndex — the
+        access-counter adaptivity of the segment catalog, applied to point
+        lookups. The counter, the build and the publish hold the table's
+        index lock, so concurrent probes build one index; it is built from
+        the pinned snapshot `snap`, and rows appended later are indexed as
+        every index covers them, per segment on its first lookup there
+        (storage/index.py). Returns the index, or None below the
+        threshold."""
+        with table.index_lock:
+            idxo = table.index_on(col_name)
+            if idxo is not None:
+                return idxo
+            colo = table.columns[col_name]
+            colo._eq_probe_count = getattr(colo, "_eq_probe_count", 0) + 1
+            if colo._eq_probe_count < self.config.auto_index_threshold:
+                return None
+            from adacom_tpu_torch.storage.index import SortedIndex
+
+            idxo = SortedIndex(f"__auto_{table.name}_{colo.name}", table,
+                               colo.name)
+            idxo.build(snap)
+            table.indexes.append(idxo)
+            self.db.dist_stats["auto_index_built"] = \
+                self.db.dist_stats.get("auto_index_built", 0) + 1
+            return idxo
 
     # ==================================================================
     # filter / project over materialized input
@@ -843,6 +856,10 @@ class Executor(DeviceScan, Join):
                     gmin = mn_ if gmin is None else min(gmin, mn_)
                     gmax = mx_ if gmax is None else max(gmax, mx_)
 
+        # the fused scan tier ran (its plain version on CPU tensors, where
+        # the launch counter stays still), as B2 and B3 count theirs
+        self.db.dist_stats["pallas_scan_agg"] = \
+            self.db.dist_stats.get("pallas_scan_agg", 0) + 1
         has_pred = lo is not None or hi is not None
         prim = []
         for kind, arg, acc, _d in specs:
@@ -1835,6 +1852,17 @@ def _poly_decompose(e: b.BExpr, lits):
     return None
 
 
+def _literal_of(e: b.BExpr):
+    """(literal, sign) of a literal or of a unary minus over one (the
+    binder's form of a negative number, `v >= -20`), else None."""
+    if isinstance(e, b.BLiteral):
+        return e, 1
+    if isinstance(e, b.BUnary) and e.op == "-" and \
+            isinstance(e.operand, b.BLiteral) and not e.operand.ty.is_string:
+        return e.operand, -1
+    return None
+
+
 def _zonemap_probe(f: b.BExpr, lits):
     """Recognize (col op literal) for zonemap skipping; returns
     (col_index, op, value) or None."""
@@ -1842,15 +1870,19 @@ def _zonemap_probe(f: b.BExpr, lits):
         return None
     l, r = f.left, f.right
     flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}
-    if isinstance(l, b.BLiteral) and isinstance(r, b.BColumn):
+    if _literal_of(l) is not None and isinstance(r, b.BColumn):
         l, r = r, l
         op = flip[f.op]
-    elif isinstance(l, b.BColumn) and isinstance(r, b.BLiteral):
+    elif isinstance(l, b.BColumn) and _literal_of(r) is not None:
         op = f.op
     else:
         return None
-    lit = r
+    lit, sign = _literal_of(r)
     val = lits[lit.param] if lit.param is not None else lit.value
+    if sign < 0:
+        if not isinstance(val, (int, float)) or isinstance(val, bool):
+            return None
+        val = -val
     if isinstance(val, str):
         if lit.ty is tt.DATE:
             from adacom_tpu_torch.sql.binder import days_from_iso

@@ -68,22 +68,59 @@ class Join:
         return self._exec_join_sides(node, lits)
 
     def _exec_null_aware_anti(self, node: b.LogicalJoin, lits) -> Mat:
-        """NOT IN: the anti join, except that a NULL on the right keeps no
-        row, and a left row whose key is NULL survives only an empty right
-        side (where every left row survives)."""
+        """NOT IN: x NOT IN (SELECT y ...), the pair conditions[0]. The
+        right rows of a left row o, S(o), are those that meet the other
+        conditions and the residual (a correlated subquery), else all of
+        them. o survives when S(o) is empty, or when x is not NULL and S(o)
+        holds no NULL y and no y equal to x (the JAX package plans a
+        correlated NOT IN as NOT EXISTS)."""
         right = self._exec(node.right, lits)
         if right.nrows == 0:
             out = self._exec(node.left, lits)
             out.names = list(node.names)
             return out
-        _rk, rok = self._join_keys([re_ for _l, re_ in node.conditions],
-                                   right, lits)
+        pair, corr = node.conditions[:1], node.conditions[1:]
+        _rk, rok = self._join_keys([pair[0][1]], right, lits)
+        if not corr and node.residual is None:
+            # one S for every left row: the uncorrelated NOT IN
+            if rok is not None and not rok.all():
+                return Mat.empty_like(node)
+            out = self._exec_join_sides(node, lits, right)
+            _lk, lok = self._join_keys([pair[0][0]], out, lits)
+            return out if lok is None else out.take(np.nonzero(lok)[0])
+        left = self._exec(node.left, lits)
+        _lk, lok = self._join_keys([pair[0][0]], left, lits)
+        has = self._matched(node, left, right, corr, lits)
+        keep = ~has
+        alive = has if lok is None else has & lok
         if rok is not None and not rok.all():
-            return Mat.empty_like(node)
-        out = self._exec_join_sides(node, lits, right)
-        _lk, lok = self._join_keys([le for le, _r in node.conditions], out,
-                                   lits)
-        return out if lok is None else out.take(np.nonzero(lok)[0])
+            nulls = right.take(np.nonzero(~rok)[0])
+            alive &= ~self._matched(node, left, nulls, corr, lits)
+        keep |= alive & ~self._matched(node, left, right, node.conditions,
+                                       lits)
+        out = left.take(np.nonzero(keep)[0])
+        out.names = list(node.names)
+        return out
+
+    def _matched(self, node, left, right, conditions, lits) -> np.ndarray:
+        """Left rows with a right row that meets `conditions` (NULL keys
+        meet nothing) and node's residual."""
+        if conditions:
+            lkeys, lok = self._join_keys([le for le, _r in conditions],
+                                         left, lits)
+            rkeys, rok = self._join_keys([re_ for _l, re_ in conditions],
+                                         right, lits)
+            li, ri = _hash_join_pairs(lkeys, rkeys, self.config, lok, rok,
+                                      db=self.db)
+        else:
+            li = np.repeat(np.arange(left.nrows), right.nrows)
+            ri = np.tile(np.arange(right.nrows), left.nrows)
+        if node.residual is not None and len(li):
+            ok = self._residual_mask(node, left, right, li, ri, lits)
+            li = li[ok]
+        hit = np.zeros(left.nrows, dtype=bool)
+        hit[li] = True
+        return hit
 
     def _exec_join_sides(self, node: b.LogicalJoin, lits,
                          right: Optional[Mat] = None) -> Mat:

@@ -74,12 +74,16 @@ def _infer_type(samples: List[str]):
 
 
 def read_csv(path: str, header: Optional[bool] = None, delim: str = ",",
-             threads: int = 0):
+             threads: int = 0, types: Optional[List] = None):
     """Parse a CSV file.
 
     Returns (names, types, columns, validity) with columns as python lists
     of str cells converted per inferred type: numeric columns become numpy
-    arrays, VARCHAR stays a list of str, DATE becomes days-since-epoch."""
+    arrays, VARCHAR stays a list of str, DATE becomes days-since-epoch.
+    With `types` (COPY FROM into a table: one logical type per column),
+    column i is parsed as types[i] instead (main/coerce.py: exact DECIMAL
+    text, ISO dates, integers checked for range); an empty field is NULL
+    and a field the type cannot hold raises ValueError."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     with open(path, "rb") as f:
@@ -108,19 +112,24 @@ def read_csv(path: str, header: Optional[bool] = None, delim: str = ",",
     else:
         names = [f"column{i}" for i in range(ncol)]
     names = names + [f"column{i}" for i in range(len(names), ncol)]
-    cols: List[List[str]] = [[] for _ in range(ncol)]
-    for r in rows:
-        for i in range(ncol):
-            cols[i].append(r[i] if i < len(r) else "")
-    types, out_cols, out_valid = [], [], []
+    if any(len(r) != ncol for r in rows):
+        rows = [r + [""] * (ncol - len(r)) for r in rows]
+    cols: List[List[str]] = [list(c) for c in zip(*rows)] if rows else \
+        [[] for _ in range(ncol)]
+    out_types, out_cols, out_valid = [], [], []
     from adacom_tpu_torch.sql.binder import days_from_iso
 
     for i in range(ncol):
+        cells = cols[i]
+        empty = np.asarray(cells, dtype=object) == ""
+        valid = ~empty if empty.any() else None
+        if types is not None and i < len(types):
+            out_types.append(types[i])
+            out_cols.append(_typed(cells, valid, types[i], names[i]))
+            out_valid.append(valid)
+            continue
         sample = cols[i][:2048]
         ty = _infer_type(sample)
-        cells = cols[i]
-        empty = np.asarray([c == "" for c in cells], dtype=bool)
-        valid = ~empty if empty.any() else None
         if ty is tt.BIGINT:
             try:
                 arr = np.asarray([int(c) if c != "" else 0 for c in cells],
@@ -142,10 +151,30 @@ def read_csv(path: str, header: Optional[bool] = None, delim: str = ",",
         if ty is tt.VARCHAR:
             arr = cells  # list[str]; dictionary-encoded by the table layer
             valid = None if valid is None else valid
-        types.append(ty)
+        out_types.append(ty)
         out_cols.append(arr)
         out_valid.append(valid)
-    return names, types, out_cols, out_valid
+    return names, out_types, out_cols, out_valid
+
+
+def _typed(cells: List[str], valid, ty, name: str):
+    """One column's fields parsed as the logical type `ty`; NULL fields
+    (valid False) get the type's zero."""
+    from adacom_tpu_torch.main import coerce
+
+    if ty.is_string:
+        return cells
+    present = cells if valid is None else \
+        np.asarray(cells, dtype=object)[valid].tolist()
+    try:
+        vals = coerce.from_text(present, ty)
+    except ValueError as e:
+        raise ValueError(f"column {name}: {e}") from None
+    if valid is None:
+        return vals
+    out = np.zeros(len(cells), vals.dtype)
+    out[valid] = vals
+    return out
 
 
 def write_csv(path: str, names: List[str], rendered_cols: List[np.ndarray],

@@ -8,6 +8,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from adacom_tpu_torch.main import coerce
+
 FLUSH_ROWS = 1 << 18
 
 
@@ -70,14 +72,8 @@ class Appender:
             if col.dictionary is not None:
                 arr = col.dictionary.encode(["" if v is None else str(v) for v in buf])
             else:
-                dt = col.ltype.np_dtype
-                if col.ltype.name == "DECIMAL":
-                    arr = np.asarray(
-                        [0 if v is None else int(round(float(v) * 10 ** col.ltype.scale)) for v in buf],
-                        dtype=dt,
-                    )
-                else:
-                    arr = np.asarray([0 if v is None else v for v in buf]).astype(dt)
+                # INSERT ... VALUES's rule (main/coerce.py)
+                arr = coerce.from_values(buf, col.ltype)
             data[cname] = arr
             if has_null:
                 vd[cname] = np.asarray([v is not None for v in buf], dtype=bool)

@@ -21,6 +21,7 @@ import torch
 from adacom_tpu_torch import types as tt
 from adacom_tpu_torch.exec.device_scan import declines
 from adacom_tpu_torch.exec.executor import Executor, Mat
+from adacom_tpu_torch.main import coerce
 from adacom_tpu_torch.main.result import QueryResult
 from adacom_tpu_torch.sql import ast
 from adacom_tpu_torch.catalog.catalog import CatalogException
@@ -285,50 +286,43 @@ class Connection:
             plan = optimize(binder.bind_select(stmt.as_select), set())
             mat = self.executor.execute(plan, lits)
             cols = [(n, t) for n, t in zip(mat.names, mat.types)]
-            table = self.db.catalog.create_table(stmt.name, [], stmt.if_not_exists)
-            # rebuild with proper column defs
-            self.db.catalog.drop_table(stmt.name)
-            table = self.db.catalog.create_table(
-                stmt.name, cols, stmt.if_not_exists
-            )
-            self._append_mat(table, mat)
+            self.db.catalog.create_table(
+                stmt.name, cols, stmt.if_not_exists,
+                fill=lambda table: self._append_mat(table, mat))
             self._bump_catalog_version()
             return None
         cols = []
         for cname, ctype, targs in stmt.columns:
             cols.append((cname, tt.type_from_name(ctype, targs)))
-        self.db.catalog.create_table(stmt.name, cols, stmt.if_not_exists)
         # PRIMARY KEY / UNIQUE constraints become unique sorted indexes
         # (reference: constraints create ART indexes on the table)
-        for kind, col in (stmt.constraints or ()):
-            prefix = "pk" if kind == "primary_key" else "uq"
-            self.db.catalog.create_index(
-                f"{prefix}_{stmt.name}_{col}".lower(), stmt.name, col,
-                unique=True, if_not_exists=True)
+        unique = [(f"{'pk' if kind == 'primary_key' else 'uq'}_"
+                   f"{stmt.name}_{col}", col)
+                  for kind, col in (stmt.constraints or ())]
+        self.db.catalog.create_table(stmt.name, cols, stmt.if_not_exists,
+                                     unique=unique)
         self._bump_catalog_version()
         return None
 
     def _append_mat(self, table, mat: Mat):
-        data = {}
-        validity = {}
-        for name, t, c, v, d in zip(mat.names, mat.types, mat.cols, mat.valids, mat.dicts):
-            tcol = table.columns[name.lower()] if name.lower() in table.columns else None
-            if tcol is None:
-                # align by position
-                pass
-            if v is not None:
-                validity[name] = v
-            data[name] = c
-        # align by position against table column order
+        """Append a SELECT's rows by position; a column of another type is
+        cast into the table column's, by UPDATE's rule (main/coerce.py)."""
         by_pos = {}
         vd = {}
         for i, cname in enumerate(table.column_order):
-            src = mat.cols[i]
-            t = mat.types[i]
+            src, t, d = mat.cols[i], mat.types[i], mat.dicts[i]
             col = table.columns[cname]
-            if col.dictionary is not None and mat.dicts[i] is not None and \
-               col.dictionary is not mat.dicts[i]:
-                src = col.dictionary.encode(mat.dicts[i].decode(src))
+            if t.is_string and col.ltype.is_string:
+                if col.dictionary is not None and d is not None and \
+                        col.dictionary is not d:
+                    src = col.dictionary.encode(d.decode(src))
+            elif t != col.ltype:
+                try:
+                    src = coerce.cast(src, mat.valids[i], t, col.ltype,
+                                      mat.nrows, d, col.dictionary)
+                except ValueError as e:
+                    raise SQLError(f"INSERT INTO {table.name} ({cname}): "
+                                   f"{e}") from e
             by_pos[cname] = src
             if mat.valids[i] is not None:
                 vd[cname] = mat.valids[i]
@@ -374,19 +368,12 @@ class Connection:
             if col.dictionary is not None:
                 arr = col.dictionary.encode(["" if v is None else str(v) for v in vals])
             else:
-                dt = col.ltype.np_dtype
-                if col.ltype.name == "DECIMAL":
-                    scaled = [0 if v is None else int(round(float(v) * 10 ** col.ltype.scale)) for v in vals]
-                    arr = np.asarray(scaled, dtype=dt)
-                elif col.ltype is tt.DATE:
-                    from adacom_tpu_torch.sql.binder import days_from_iso
-
-                    arr = np.asarray(
-                        [0 if v is None else (days_from_iso(v) if isinstance(v, str) else int(v)) for v in vals],
-                        dtype=dt,
-                    )
-                else:
-                    arr = np.asarray([0 if v is None else v for v in vals]).astype(dt)
+                # the rules of UPDATE and COPY (main/coerce.py)
+                try:
+                    arr = coerce.from_values(vals, col.ltype)
+                except ValueError as e:
+                    raise SQLError(f"INSERT INTO {stmt.table} ({c}): {e}") \
+                        from e
             batch[c] = arr
             if not vmask.all():
                 any_null = True
@@ -402,26 +389,29 @@ class Connection:
 
     def _filter_row_matches(self, table_name: str, where, lits=()):
         """Evaluate a WHERE clause on the device scan (on the host tier for
-        a scan the device path declines, as SELECT does); yields (table,
-        seg_idx, row_idx_np) per segment with matches."""
+        a scan the device path declines, as SELECT does) over one pinned
+        snapshot; returns (get, snapshot, [(seg_idx, row_idx_np)]) for the
+        segments with matches."""
         table = self.db.catalog.get_table(table_name)
         table.flush()
         get = self._bind_filter_plan(table_name, where)
         ex = self.executor
+        snap = ex._pin_snapshot(table)
+        matches = []
         if declines(get):
-            snap = ex._pin_snapshot(table)
             candidates = ex._zonemap_candidates(get, lits, snap)
             for i, _cols, rows in ex._host_scan_morsels(get, lits, candidates,
                                                         snap):
                 if len(rows):
-                    yield table, i, rows
-            return
-        for ids, _counts, (mask, _cols) in ex._scan_batches(get, lits):
+                    matches.append((i, rows))
+            return get, snap, matches
+        for ids, _counts, (mask, _cols) in ex._scan_batches(get, lits, snap):
             hits = torch.nonzero(mask).cpu().numpy()  # (seg in chunk, row)
             bounds = np.searchsorted(hits[:, 0], np.arange(1, len(ids)))
             for i, rows in zip(ids, np.split(hits[:, 1], bounds)):
                 if len(rows):
-                    yield table, i, rows
+                    matches.append((i, rows))
+        return get, snap, sorted(matches, key=lambda m: m[0])
 
     def _bind_filter_plan(self, table_name, where):
         from adacom_tpu_torch.sql import bound as b
@@ -459,50 +449,59 @@ class Connection:
             return None
         # collect matches first, publish once: the statement's delete masks
         # become visible to reader snapshots atomically
-        updates = [(i, rows) for _t, i, rows
-                   in self._filter_row_matches(stmt.table, stmt.where, lits)]
+        _get, _snap, updates = self._filter_row_matches(stmt.table,
+                                                        stmt.where, lits)
         if updates:
             table.mark_deleted_many(updates)
         return None
 
     def _execute_update(self, stmt: ast.UpdateStmt, lits=()):
-        # UPDATE = select matching rows, delete them, re-append modified
-        table = self.db.catalog.get_table(stmt.table)
-        self._txn_touch(table)
-        cols_sql = ", ".join(table.column_order)
-        where_part = ""
-        sel = ast.SelectStmt(
-            select_list=[(ast.Star(), None)],
-            from_ref=ast.BaseTable(stmt.table, None),
-            where=stmt.where,
-        )
-        binder = Binder(self.db.catalog, self.db.config)
-        plan = optimize(binder.bind_select(sel), set())
-        mat = self.executor.execute(plan, lits)
-        if mat.nrows == 0:
-            return None
-        # delete matched rows
-        for table_, i, rows in self._filter_row_matches(stmt.table, stmt.where, lits):
-            table_.mark_deleted(i, rows)
-        # apply assignments on the materialized rows
+        """UPDATE = the matched rows' new versions appended and their old
+        ones deleted, in one step (Table.replace_rows). The rows and their
+        values come from the snapshot the WHERE ran on; every new value is
+        cast into its column's type before anything changes, so an UPDATE
+        that raises leaves the table, its indexes and the WAL as they
+        were (the JAX package deletes the rows first and loses them when
+        the append raises)."""
         from adacom_tpu_torch.sql.binder import Scope
 
-        scope = Scope.from_op(plan, None)
-        name_to_pos = {n.lower(): i for i, n in enumerate(mat.names)}
+        table = self.db.catalog.get_table(stmt.table)
+        self._txn_touch(table)
+        get, snap, updates = self._filter_row_matches(stmt.table, stmt.where,
+                                                      lits)
+        if not updates:
+            return None
+        mat = _rows_of(snap, get, updates)
+        binder = Binder(self.db.catalog, self.db.config)
+        scope = Scope.from_op(get, stmt.table)
+        data = dict(zip(get.column_ids, mat.cols))
+        valid = dict(zip(get.column_ids, mat.valids))
         for cname, e in stmt.assignments:
+            cname = cname.lower()
+            if cname not in data:
+                raise SQLError(f"unknown column {cname}")
             be = binder.bind_expr(e, scope)
-            outs = self.executor._eval_on_mat([be], mat, lits)
-            v, m = outs[0]
-            arr = np.asarray(v)
-            pos = name_to_pos[cname.lower()]
-            col = table.columns[cname.lower()]
-            if arr.ndim == 0:
-                arr = np.full(mat.nrows, arr)
-            if col.ltype.name == "DECIMAL" and be.ty.name != "DECIMAL":
-                arr = np.round(arr.astype(np.float64) * 10 ** col.ltype.scale).astype(np.int64)
-            mat.cols[pos] = arr.astype(col.ltype.np_dtype)
-            mat.valids[pos] = None if m is None else np.asarray(m)
-        self._append_mat(table, mat)
+            col = table.columns[cname]
+            text = _literal_text(be, lits) if col.ltype.name == "DECIMAL" \
+                else None
+            if text is not None:
+                # all of a literal's digits, as INSERT keeps them
+                v, m = text, None
+            else:
+                (v, m), = self.executor._eval_on_mat([be], mat, lits)
+            ok = None if m is None else np.broadcast_to(
+                np.asarray(m, bool), (mat.nrows,))
+            try:
+                data[cname] = coerce.cast(v, ok, be.ty, col.ltype, mat.nrows,
+                                          binder._expr_dict(be),
+                                          col.dictionary)
+            except ValueError as err:
+                raise SQLError(f"UPDATE {stmt.table} SET {cname}: {err}") \
+                    from err
+            valid[cname] = None if ok is None or ok.all() else ok.copy()
+        table.replace_rows(updates, data,
+                           {c: v for c, v in valid.items() if v is not None}
+                           or None)
         return None
 
     # ------------------------------------------------------------------
@@ -711,22 +710,33 @@ class Connection:
         if stmt.direction == "from":
             table = self.db.catalog.get_table(stmt.table)
             header = opts.get("header")
-            if fmt == "parquet":
-                from adacom_tpu_torch.io import parquet_io
+            # every field takes its column's type (main/coerce.py): the
+            # JAX package appends the sniffed types as they are, so a
+            # DECIMAL column got DOUBLEs unscaled
+            try:
+                if fmt == "parquet":
+                    from adacom_tpu_torch.io import parquet_io
 
-                names, types, cols, valids = parquet_io.read_parquet(
-                    stmt.path)
-            elif fmt == "json":
-                from adacom_tpu_torch.io import json_io
+                    names, types, cols, valids = parquet_io.read_parquet(
+                        stmt.path)
+                elif fmt == "json":
+                    from adacom_tpu_torch.io import json_io
 
-                names, types, cols, valids = json_io.read_json(stmt.path)
-            else:
-                names, types, cols, valids = csv_io.read_csv(
-                    stmt.path, header=header, delim=delim)
-            if len(cols) != len(table.column_order):
-                raise SQLError(
-                    f"COPY: file has {len(cols)} columns, table "
-                    f"{stmt.table} has {len(table.column_order)}")
+                    names, types, cols, valids = json_io.read_json(stmt.path)
+                else:
+                    names, types, cols, valids = csv_io.read_csv(
+                        stmt.path, header=header, delim=delim,
+                        types=table.column_types)
+                if len(cols) != len(table.column_order):
+                    raise SQLError(
+                        f"COPY: file has {len(cols)} columns, table "
+                        f"{stmt.table} has {len(table.column_order)}")
+                if fmt in ("parquet", "json"):
+                    cols = [_copy_cast(c, v, src, dst, names[i])
+                            for i, (c, v, src, dst) in enumerate(zip(
+                                cols, valids, types, table.column_types))]
+            except ValueError as e:
+                raise SQLError(f"COPY {stmt.table}: {e}") from e
             data = dict(zip(table.column_order, cols))
             validity = {c: v for c, v in zip(table.column_order, valids)
                         if v is not None}
@@ -838,6 +848,53 @@ class _TextDict:
         return len(self._strings)
 
 
+def _literal_text(be, lits) -> Optional[str]:
+    """The text of a numeric literal written with a fraction (sql/lexer.py
+    NumText), negated or not; None for any other expression."""
+    from adacom_tpu_torch.sql import bound as b
+
+    neg = isinstance(be, b.BUnary) and be.op == "-"
+    if neg:
+        be = be.operand
+    if not isinstance(be, b.BLiteral):
+        return None
+    v = lits[be.param] if be.param is not None and be.param < len(lits) \
+        else be.value
+    if not getattr(v, "text", None):
+        return None
+    return (-v).text if neg else v.text
+
+
+def _copy_cast(col, valid, src, dst, name):
+    """A column read from Parquet or JSON (typed by its reader) as values
+    of the table column's type `dst`."""
+    if src == dst or (src.is_string and dst.is_string):
+        return col
+    try:
+        return coerce.cast(col, valid, src, dst, len(col))
+    except ValueError as e:
+        raise ValueError(f"column {name}: {e}") from None
+
+
+def _rows_of(snap, get, updates) -> Mat:
+    """The rows `updates` ([(segment index, rows)]) of a pinned snapshot,
+    every column of the scan `get`, as a Mat."""
+    cols, valids = [], []
+    for c in get.column_ids:
+        segs = [snap.segment(c, i) for i, _rows in updates]
+        cols.append(np.concatenate([
+            s._host_compute_values()[rows]
+            for s, (_i, rows) in zip(segs, updates)]))
+        masks = [s.host_validity() for s in segs]
+        valids.append(None if all(m is None for m in masks) else
+                      np.concatenate([
+                          np.ones(len(rows), bool) if m is None else m[rows]
+                          for m, (_i, rows) in zip(masks, updates)]))
+    return Mat(list(get.names), list(get.types),
+               list(getattr(get, "dicts", [None] * len(get.names))), cols,
+               valids)
+
+
 def _const_eval(binder, e, scope, lits=()):
     """Evaluate a constant expression from INSERT ... VALUES; '?'
     placeholders and parameterized literals read their slot in `lits`."""
@@ -845,13 +902,17 @@ def _const_eval(binder, e, scope, lits=()):
 
     be = binder.bind_expr(e, scope)
     from adacom_tpu_torch.sql import bound as b
+    from adacom_tpu_torch.sql.binder import days_from_iso, iso_from_days
 
     def ev(x):
         if isinstance(x, b.BLiteral):
+            v = x.value
             if x.param is not None and x.param < len(lits) and \
                     lits[x.param] is not PLACEHOLDER:
-                return lits[x.param]
-            return x.value
+                v = lits[x.param]
+            if x.ty is tt.DATE and isinstance(v, str):
+                return days_from_iso(v)  # a DATE evaluates to its days
+            return v
         if isinstance(x, b.BUnary) and x.op == "-":
             return -ev(x.operand)
         if isinstance(x, b.BCast):
@@ -861,8 +922,6 @@ def _const_eval(binder, e, scope, lits=()):
             if x.ty.name == "DECIMAL":
                 return float(v)
             if x.ty is tt.DATE and isinstance(v, str):
-                from adacom_tpu_torch.sql.binder import days_from_iso
-
                 return days_from_iso(v)
             if x.ty.integer:
                 return int(v)
@@ -877,7 +936,10 @@ def _const_eval(binder, e, scope, lits=()):
                     "/": lambda: l / r, "%": lambda: l % r}[x.op]()
         raise SQLError("INSERT VALUES must be constant expressions")
 
-    return ev(be)
+    v = ev(be)
+    if be.ty is tt.DATE and isinstance(v, (int, np.integer)):
+        return iso_from_days(v)  # as the literal's text, for any column
+    return v
 
 
 def _render_plan(plan, indent=0, profile=None) -> str:

@@ -67,8 +67,11 @@ class Relation:
                         f"SELECT DISTINCT * FROM ({self._sql}) __r")
 
     def union(self, other: "Relation", all: bool = True) -> "Relation":
+        # each side as a subquery in FROM: the parser takes no
+        # parenthesized SELECT as a set operation's operand
         op = "UNION ALL" if all else "UNION"
-        return Relation(self.con, f"({self._sql}) {op} ({other._sql})")
+        return Relation(self.con, f"SELECT * FROM ({self._sql}) __l {op} "
+                                  f"SELECT * FROM ({other._sql}) __r")
 
     def sample(self, n: int) -> "Relation":
         return Relation(self.con,

@@ -845,8 +845,6 @@ class Binder:
         at range.cpp, `read_csv`/`read_csv_auto` at read_csv.cpp). The
         function output materializes into an anonymous in-memory table so
         every scan path (zonemaps, codecs, fused kernels) applies."""
-        import numpy as np
-
         name = ref.name.lower()
         alias = ref.alias or name
         args = []
@@ -855,6 +853,17 @@ class Binder:
                 raise BindError("table function arguments must be literals")
             v = a.value
             args.append(v.strip("'\"") if isinstance(v, str) else v)
+        plan, scope = self.table_function_plan(name, alias, args)
+        # the call that made the table: the plan serializer re-runs it
+        # (sql/serialize.py), since the table is in no catalog
+        plan.table.source = (name, args)
+        return plan, scope
+
+    def table_function_plan(self, name: str, alias: str, args: list):
+        """The anonymous table of table function `name` over literal
+        `args`, and its scope."""
+        import numpy as np
+
         if name == "range":
             if not 1 <= len(args) <= 3:
                 raise BindError("range(start, stop[, step])")
@@ -892,7 +901,7 @@ class Binder:
             if not names:
                 raise BindError(f"empty JSON file: {args[0]}")
             return self._anon_table_plan(alias, names, types, cols, valids)
-        raise BindError(f"unknown table function {ref.name!r}")
+        raise BindError(f"unknown table function {name!r}")
 
     def _anon_table_plan(self, alias, names, types, cols, valids):
         from adacom_tpu_torch.storage.table import Table

@@ -237,8 +237,10 @@ class LogicalJoin(LogicalOp):
     conditions: List[Tuple[BExpr, BExpr]] = dataclasses.field(default_factory=list)
     # residual predicate over the combined schema (left cols then right cols)
     residual: Optional[BExpr] = None
-    # an anti join made from NOT IN: no row survives when the right side
-    # holds a NULL key, and a NULL left key survives only when it is empty
+    # an anti join made from NOT IN, whose pair is conditions[0] (the other
+    # conditions and the residual correlate a subquery): no row survives
+    # when its right rows hold a NULL key, and a NULL left key survives
+    # only when they are none
     null_aware: bool = False
 
 

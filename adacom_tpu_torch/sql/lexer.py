@@ -33,6 +33,26 @@ KEYWORDS = {
 IDENT, KW, NUM, STR, OP, EOF = "IDENT", "KW", "NUM", "STR", "OP", "EOF"
 
 
+class NumText(float):
+    """A numeric literal written with a fraction or an exponent: its float
+    value, and the text it was written as, which a DECIMAL column takes
+    exactly (main/coerce.py from_values). Arithmetic gives plain floats."""
+
+    __slots__ = ("text",)
+
+    def __new__(cls, text: str):
+        self = super().__new__(cls, text)
+        self.text = text
+        return self
+
+    def __getnewargs__(self):
+        return (self.text,)
+
+    def __neg__(self):
+        return NumText(self.text[1:] if self.text.startswith("-")
+                       else "-" + self.text)
+
+
 class _Placeholder:
     """Sentinel literal value for '?' slots (replaced at EXECUTE)."""
 
@@ -123,7 +143,7 @@ def tokenize(sql: str) -> Tuple[List[Token], Tuple, List]:
                     is_float = True
                 j += 1
             text = sql[i:j]
-            val = float(text) if is_float else int(text)
+            val = NumText(text) if is_float else int(text)
             toks.append(Token(NUM, text, i, param=len(lits)))
             key.append(("NUM", "f" if is_float else "i"))
             lits.append(val)

@@ -768,11 +768,15 @@ def _plan_correlated_semi(child: b.LogicalOp, c: b.BSubquery) -> b.LogicalOp:
 
         residual = _conjoin([_transform_expr(r, fix) for r in residuals])
     sub_p = push_filters(sub)
+    # NOT IN is null-aware (exec/join.py _exec_null_aware_anti): its pair
+    # is conditions[0], the correlation the other conditions and the
+    # residual; NOT EXISTS stays a plain anti join
     node = b.LogicalJoin(
         names=list(child.names), types=list(child.types),
         left=child, right=sub_p,
         join_type="anti" if c.negated else "semi",
         conditions=conditions, residual=residual,
+        null_aware=c.negated and c.kind == "in",
     )
     node.dicts = getattr(child, "dicts", [None] * len(child.names))
     return node

@@ -7,7 +7,8 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 from adacom_tpu_torch.sql import ast
-from adacom_tpu_torch.sql.lexer import EOF, IDENT, KW, NUM, OP, STR, Token, tokenize
+from adacom_tpu_torch.sql.lexer import (EOF, IDENT, KW, NUM, OP, STR, NumText,
+                                        Token, tokenize)
 
 
 class ParserError(Exception):
@@ -978,4 +979,5 @@ class _Parser:
 
 
 def _num(t: Token):
-    return float(t.value) if any(c in t.value for c in ".eE") else int(t.value)
+    return NumText(t.value) if any(c in t.value for c in ".eE") \
+        else int(t.value)

@@ -11,7 +11,11 @@ Every bound plan node / expression is a dataclass (sql/bound.py), so the
 encoding is structural: {"__t": <class>, <field>: <value>...}. Special
 encodings:
 - LogicalType           -> {"__ty": [name, precision, scale]}
-- storage Table         -> {"__table": name} (re-resolved via the catalog)
+- storage Table         -> {"__table": name} (re-resolved via the catalog);
+                           the anonymous table of a table function
+                           (read_csv(...), range(...)) -> {"__table_fn":
+                           [function, [args...], alias]}, which
+                           deserialization calls again
 - StringDictionary      -> {"__dict": ["table", tname, cname]} when it is
                            a table column's dictionary, else
                            {"__dict": ["inline", [strings...]]}
@@ -101,7 +105,10 @@ def _enc(v: Any, idx: _DictIndex):
         for f in dataclasses.fields(v):
             fv = getattr(v, f.name)
             if isinstance(v, b.LogicalGet) and f.name == "table":
-                out["table"] = {"__table": v.table_name}
+                source = getattr(fv, "source", None)
+                out["table"] = {"__table": v.table_name} if source is None \
+                    else {"__table_fn": [source[0], list(source[1]),
+                                         v.table_name]}
                 continue
             if isinstance(v, b.BSubquery) and f.name == "cached_value":
                 out["cached_value"] = None
@@ -148,6 +155,14 @@ def _dec(v: Any, catalog):
         return tuple(_dec(x, catalog) for x in v["__tuple"])
     if "__table" in v:
         return catalog.get_table(v["__table"])
+    if "__table_fn" in v:
+        from adacom_tpu_torch.sql.binder import Binder
+
+        name, args, alias = v["__table_fn"]
+        plan, _scope = Binder(catalog, catalog.config).table_function_plan(
+            name, alias, args)
+        plan.table.source = (name, args)
+        return plan.table
     if "__t" in v:
         cls = _NODE_TYPES[v["__t"]]
         kwargs = {}

@@ -23,6 +23,7 @@ import numpy as np
 
 from adacom_tpu_torch import types as tt
 from adacom_tpu_torch.storage.segment import ColumnSegment
+from adacom_tpu_torch.storage.wal import RecordGroup
 
 
 class StringDictionary:
@@ -354,6 +355,8 @@ class Table:
         self.no_unseal = False  # fresh segments only while a txn writes
         # secondary indexes (storage/index.py; reference ART per-table list)
         self.indexes: list = []
+        # held while an auto-index is counted, built and published
+        self.index_lock = threading.Lock()
 
     @property
     def column_types(self) -> List[tt.LogicalType]:
@@ -368,53 +371,93 @@ class Table:
     def append_batch(self, data: Dict[str, np.ndarray], validity: Optional[Dict[str, np.ndarray]] = None):
         """Append aligned column arrays (one batch of rows)."""
         with self._append_lock:
-            n = None
-            for c in self.column_order:
-                if c not in data:
-                    raise KeyError(f"missing column {c} in append")
-                if n is None:
-                    n = len(data[c])
-                elif len(data[c]) != n:
-                    raise ValueError("ragged append batch")
-            normalized: Dict[str, np.ndarray] = {}
-            for c in self.column_order:
-                col = self.columns[c]
-                vals = data[c]
-                if col.dictionary is not None and (
-                    not isinstance(vals, np.ndarray) or vals.dtype.kind in "OUS"
-                ):
-                    vals = col.dictionary.encode(list(vals))
-                else:
-                    vals = np.asarray(vals)
-                    if vals.dtype != col.ltype.np_dtype:
-                        vals = vals.astype(col.ltype.np_dtype)
-                normalized[c] = vals
-            for idx in self.indexes:
-                if idx.unique:
-                    # seal staging first so the index sees all prior rows
-                    for cn in self.column_order:
-                        self.columns[cn].flush()
-                    idx.check_batch_unique(normalized[idx.column])
+            normalized = self._normalize(data)
+            self._check_unique(normalized)
             if self.wal is not None:
-                # WAL stores logical content: dictionary columns as strings
-                # (the dictionary is rebuilt on replay, codes are not stable)
-                wal_data = {}
-                for c in self.column_order:
-                    col = self.columns[c]
-                    if col.dictionary is not None:
-                        wal_data[c] = np.asarray(
-                            col.dictionary.decode(normalized[c].astype(np.int64)),
-                            dtype=object)
-                    else:
-                        wal_data[c] = normalized[c]
-                self.wal.log_insert(self.name, wal_data, validity)
-            for c in self.column_order:
-                col = self.columns[c]
-                if not self.no_unseal:
-                    # in-flight txn: rewriting the tail segment would mix
-                    # committed and uncommitted rows across the watermark
-                    col.unseal_last_partial()
-                col.stage(normalized[c], validity.get(c) if validity else None)
+                self._log_insert(self.wal, normalized, validity)
+            self._stage(normalized, validity)
+
+    def replace_rows(self, updates, data: Dict[str, np.ndarray],
+                     validity: Optional[Dict[str, np.ndarray]] = None):
+        """UPDATE's publish: delete `updates` ([(segment index, rows)]) and
+        append their new versions `data` in one step under the append
+        lock, so a reader's snapshot sees both or neither. Every check runs
+        first (types, UNIQUE on the keys after the update, the old versions
+        gone), so a statement that raises changes nothing. The dictionary
+        of a VARCHAR column may keep strings of a failed statement, which
+        no row references."""
+        with self._append_lock:
+            self.flush_locked()
+            normalized = self._normalize(data)
+            masks = self._masks_with(updates)
+            self._check_unique(normalized, masks)
+            if self.wal is not None:
+                # the deletes and the rows reach the log in one write (one
+                # marked group) while the lock orders them among appends
+                group = RecordGroup()
+                self._log_deletes(group, updates)
+                self._log_insert(group, normalized, validity)
+                self.wal.write_group(group)
+            self._deletes = masks
+            self._has_deletes = True
+            self._stage(normalized, validity)
+
+    def _normalize(self, data) -> Dict[str, np.ndarray]:
+        """`data` in each column's storage dtype; strings of a VARCHAR
+        column become codes of its dictionary."""
+        n = None
+        for c in self.column_order:
+            if c not in data:
+                raise KeyError(f"missing column {c} in append")
+            if n is None:
+                n = len(data[c])
+            elif len(data[c]) != n:
+                raise ValueError("ragged append batch")
+        normalized: Dict[str, np.ndarray] = {}
+        for c in self.column_order:
+            col = self.columns[c]
+            vals = data[c]
+            if col.dictionary is not None and (
+                not isinstance(vals, np.ndarray) or vals.dtype.kind in "OUS"
+            ):
+                vals = col.dictionary.encode(list(vals))
+            else:
+                vals = np.asarray(vals)
+                if vals.dtype != col.ltype.np_dtype:
+                    vals = vals.astype(col.ltype.np_dtype)
+            normalized[c] = vals
+        return normalized
+
+    def _check_unique(self, normalized, deletes=None):
+        for idx in self.indexes:
+            if idx.unique:
+                # seal staging first so the index sees all prior rows
+                for cn in self.column_order:
+                    self.columns[cn].flush()
+                idx.check_batch_unique(normalized[idx.column], deletes)
+
+    def _log_insert(self, log, normalized, validity):
+        # WAL stores logical content: dictionary columns as strings
+        # (the dictionary is rebuilt on replay, codes are not stable)
+        wal_data = {}
+        for c in self.column_order:
+            col = self.columns[c]
+            if col.dictionary is not None:
+                wal_data[c] = np.asarray(
+                    col.dictionary.decode(normalized[c].astype(np.int64)),
+                    dtype=object)
+            else:
+                wal_data[c] = normalized[c]
+        log.log_insert(self.name, wal_data, validity)
+
+    def _stage(self, normalized, validity):
+        for c in self.column_order:
+            col = self.columns[c]
+            if not self.no_unseal:
+                # in-flight txn: rewriting the tail segment would mix
+                # committed and uncommitted rows across the watermark
+                col.unseal_last_partial()
+            col.stage(normalized[c], validity.get(c) if validity else None)
 
     def flush(self):
         with self._append_lock:
@@ -542,27 +585,41 @@ class Table:
         chunk_info version-array discipline, reduced to delete masks)."""
         with self._append_lock:
             self.flush_locked()
-            col0 = self.columns[self.column_order[0]]
-            for seg_idx, rows in updates:
-                if self.wal is not None and _log:
-                    self.wal.log_delete(self.name, seg_idx, rows,
-                                        col0.segments[seg_idx].start_row)
-                seg_rows = col0.segments[seg_idx].count
-                m = self._deletes.get(seg_idx)
-                if m is None:
-                    m2 = np.zeros(seg_rows, dtype=np.bool_)
-                elif len(m) < seg_rows:
-                    # the tail segment was unsealed and re-sealed LARGER
-                    # after these rows were deleted (append into a partial
-                    # segment); the old prefix rows keep their positions —
-                    # grow the mask
-                    m2 = np.concatenate(
-                        [m, np.zeros(seg_rows - len(m), dtype=np.bool_)])
-                else:
-                    m2 = m.copy()
-                m2[rows] = True
-                self._deletes[seg_idx] = m2
+            masks = self._masks_with(updates)
+            if _log and self.wal is not None:
+                self._log_deletes(self.wal, updates)
+            self._deletes = masks
             self._has_deletes = True
+
+    def _masks_with(self, updates) -> Dict[int, np.ndarray]:
+        """The delete masks with `updates` applied, as a new dict; the
+        published masks are not touched."""
+        col0 = self.columns[self.column_order[0]]
+        masks = dict(self._deletes)
+        for seg_idx, rows in updates:
+            seg_rows = col0.segments[seg_idx].count
+            m = masks.get(seg_idx)
+            if m is None:
+                m2 = np.zeros(seg_rows, dtype=np.bool_)
+            elif len(m) < seg_rows:
+                # the tail segment was unsealed and re-sealed LARGER
+                # after these rows were deleted (append into a partial
+                # segment); the old prefix rows keep their positions —
+                # grow the mask
+                m2 = np.concatenate(
+                    [m, np.zeros(seg_rows - len(m), dtype=np.bool_)])
+            else:
+                m2 = m.copy()
+            m2[rows] = True
+            masks[seg_idx] = m2
+        return masks
+
+    def _log_deletes(self, log, updates):
+        """One delete record of `updates`' rows by global position."""
+        col0 = self.columns[self.column_order[0]]
+        log.log_delete(self.name, np.concatenate([
+            np.asarray(rows, np.int64) + np.int64(col0.segments[i].start_row)
+            for i, rows in updates]))
 
     def index_on(self, col: str):
         """First single-column index over `col`, or None (optimizer

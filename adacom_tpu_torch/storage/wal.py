@@ -12,10 +12,20 @@ disk (the database is a directory):
 
 A record is ``<u64 length><npz payload>`` where the npz holds a JSON header
 (operation + names) plus the column arrays. Replay stops cleanly at a torn
-tail record (crash mid-write). Records carry no transaction framing: a
-transaction's records reach the file together at COMMIT (fsync), so a
-ROLLBACK never needs compensation records, but a tail torn inside a
-multi-record transaction replays the records before the tear. After a
+tail record (crash mid-write). A transaction's records reach the file
+together at COMMIT (fsync), so a ROLLBACK never needs compensation records.
+Outside a transaction a statement's records are written while the lock of
+what they change is held (the table's append lock, the catalog's lock), so
+the log's order is the order in which the changes took place; a statement
+that changes more than one thing at once (an UPDATE's deletes and its new
+rows, CREATE TABLE with its constraints or its AS SELECT rows) writes its
+records in one call. Where such a group holds more than one record, a
+marker record ``{"op": "txn", "n": k}`` goes first, in the same write, and
+replay applies the k records after it only when all k are whole: a tail
+torn inside a transaction or a multi-record statement replays none of it.
+The JAX package's replay skips the marker as an unknown op, so it opens
+such a log (a torn group there replays the records before the tear), and
+a log it wrote (no markers) replays here record by record. After a
 successful checkpoint the WAL is truncated; ``wal_autocheckpoint`` bytes of
 WAL trigger an automatic checkpoint.
 """
@@ -23,6 +33,7 @@ WAL trigger an automatic checkpoint.
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import os
 import struct
@@ -34,16 +45,10 @@ import numpy as np
 _LEN = struct.Struct("<Q")
 
 
-class WriteAheadLog:
-    def __init__(self, path: str):
-        self.path = path
-        self._lock = threading.RLock()
-        self._file = open(path, "ab")
-        self._txn_buffer: Optional[List[bytes]] = None
+class RecordLog:
+    """The logical operations (reference write_ahead_log.cpp entry types)
+    as records; a subclass says where `_write` puts them."""
 
-    # ------------------------------------------------------------------
-    # record encoding
-    # ------------------------------------------------------------------
     @staticmethod
     def _encode(header: dict, arrays: Dict[str, np.ndarray]) -> bytes:
         bio = io.BytesIO()
@@ -52,37 +57,12 @@ class WriteAheadLog:
         payload = bio.getvalue()
         return _LEN.pack(len(payload)) + payload
 
+    def _write(self, recs: List[bytes]):
+        raise NotImplementedError
+
     def _emit(self, header: dict, arrays: Optional[Dict[str, np.ndarray]] = None):
-        rec = self._encode(header, arrays or {})
-        with self._lock:
-            if self._txn_buffer is not None:
-                self._txn_buffer.append(rec)
-                return
-            self._file.write(rec)
-            self._file.flush()
+        self._write([self._encode(header, arrays or {})])
 
-    # ------------------------------------------------------------------
-    # transaction buffering (records durable only at COMMIT)
-    # ------------------------------------------------------------------
-    def begin(self):
-        with self._lock:
-            self._txn_buffer = []
-
-    def commit(self):
-        with self._lock:
-            buf, self._txn_buffer = self._txn_buffer, None
-            if buf:
-                self._file.write(b"".join(buf))
-                self._file.flush()
-                os.fsync(self._file.fileno())
-
-    def abort(self):
-        with self._lock:
-            self._txn_buffer = None
-
-    # ------------------------------------------------------------------
-    # logical operations (reference write_ahead_log.cpp entry types)
-    # ------------------------------------------------------------------
     def log_create_table(self, name: str, columns: List[tuple]):
         # columns: [(name, type_name, precision, scale), ...]
         self._emit({"op": "create_table", "name": name, "cols": columns})
@@ -123,14 +103,70 @@ class WriteAheadLog:
         indexes survive."""
         self._emit({"op": "truncate", "table": table})
 
-    def log_delete(self, table: str, seg_idx: int, rows: np.ndarray,
-                   start_row: int = 0):
+    def log_delete(self, table: str, rows: np.ndarray):
         # GLOBAL row positions: replay re-segments by its own flush timing,
         # so (segment, local row) coordinates do not survive; global
         # offsets do (appends only append, rolled-back txns never log)
         self._emit({"op": "delete", "table": table},
-                   {"rows": np.asarray(rows, dtype=np.int64)
-                    + np.int64(start_row)})
+                   {"rows": np.asarray(rows, dtype=np.int64)})
+
+
+class RecordGroup(RecordLog):
+    """Records collected for one `WriteAheadLog.write_group` call."""
+
+    def __init__(self):
+        self.records: List[bytes] = []
+
+    def _write(self, recs: List[bytes]):
+        self.records.extend(recs)
+
+
+class WriteAheadLog(RecordLog):
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.RLock()
+        self._file = open(path, "ab")
+        self._txn_buffer: Optional[List[bytes]] = None
+
+    @classmethod
+    def _group(cls, recs: List[bytes]) -> bytes:
+        """The bytes of records that replay together: a marker first where
+        there is more than one."""
+        if len(recs) > 1:
+            recs = [cls._encode({"op": "txn", "n": len(recs)}, {})] + recs
+        return b"".join(recs)
+
+    def _write(self, recs: List[bytes]):
+        """Records that replay together: into the open transaction, or to
+        the file in one write."""
+        with self._lock:
+            if self._txn_buffer is not None:
+                self._txn_buffer.extend(recs)
+                return
+            self._file.write(self._group(recs))
+            self._file.flush()
+
+    def write_group(self, group: RecordGroup):
+        self._write(group.records)
+
+    # ------------------------------------------------------------------
+    # transaction buffering (records durable only at COMMIT)
+    # ------------------------------------------------------------------
+    def begin(self):
+        with self._lock:
+            self._txn_buffer = []
+
+    def commit(self):
+        with self._lock:
+            buf, self._txn_buffer = self._txn_buffer, None
+            if buf:
+                self._file.write(self._group(buf))
+                self._file.flush()
+                os.fsync(self._file.fileno())
+
+    def abort(self):
+        with self._lock:
+            self._txn_buffer = None
 
     # ------------------------------------------------------------------
     def size(self) -> int:
@@ -154,75 +190,95 @@ class WriteAheadLog:
 # ----------------------------------------------------------------------
 
 
-def replay(db, path: str) -> int:
-    """Apply WAL records to a freshly-loaded database. Returns the number of
-    records applied. Tolerates a torn final record (crash mid-append)."""
-    if not os.path.exists(path):
-        return 0
-    from adacom_tpu_torch import types as tt
-
-    applied = 0
-    with open(path, "rb") as f:
-        raw = f.read()
-    off = 0
-    total = len(raw)
+def _records(raw: bytes):
+    """(header, npz) of each whole record of a log, in order; stops at a
+    torn or corrupt record (everything before it is durable)."""
+    off, total = 0, len(raw)
     while off + _LEN.size <= total:
         (ln,) = _LEN.unpack_from(raw, off)
         if off + _LEN.size + ln > total:
-            break  # torn tail record: stop replay cleanly
+            return  # torn tail record
         payload = raw[off + _LEN.size: off + _LEN.size + ln]
         off += _LEN.size + ln
         try:
             z = np.load(io.BytesIO(payload), allow_pickle=False)
             header = json.loads(bytes(z["__header__"]).decode("utf-8"))
         except Exception:
-            break  # corrupt record: everything before it is durable
-        op = header["op"]
-        if op == "create_table":
-            cols = []
-            for cname, tname, prec, scale in header["cols"]:
-                if tname == "DECIMAL":
-                    ty = tt.DECIMAL(prec, scale)
-                else:
-                    ty = tt.type_from_name(tname)
-                cols.append((cname, ty))
-            db.catalog.create_table(header["name"], cols, if_not_exists=True)
-        elif op == "drop_table":
-            db.catalog.drop_table(header["name"], if_exists=True)
-        elif op == "create_view":
-            db.catalog.create_view(header["name"], header["sql"],
-                                   or_replace=True)
-        elif op == "drop_view":
-            db.catalog.views.pop(header["name"].lower(), None)
-        elif op == "create_index":
-            db.catalog.create_index(header["name"], header["table"],
-                                    header["column"], header["unique"],
-                                    if_not_exists=True)
-        elif op == "drop_index":
-            db.catalog.drop_index(header["name"], if_exists=True)
-        elif op == "insert":
-            table = db.catalog.get_table(header["table"])
-            data, validity = {}, {}
-            for c in header["cols"]:
-                arr = z[f"d.{c}"]
-                if arr.dtype.kind == "U":
-                    arr = arr.astype(object)
-                data[c] = arr
-                if f"v.{c}" in z.files:
-                    validity[c] = z[f"v.{c}"]
-            table.append_batch(data, validity or None)
-        elif op == "truncate":
-            db.catalog.get_table(header["table"]).truncate()
-        elif op == "delete":
-            table = db.catalog.get_table(header["table"])
-            table.flush()
-            # map global row positions onto the replay's segmentation
-            col0 = table.columns[table.column_order[0]]
-            grows = np.sort(z["rows"])
-            starts = np.cumsum([0] + [s.count for s in col0.segments])
-            seg_of = np.searchsorted(starts, grows, side="right") - 1
-            for si in np.unique(seg_of):
-                local = grows[seg_of == si] - starts[si]
-                table.mark_deleted(int(si), local, _log=False)
-        applied += 1
+            return  # corrupt record
+        yield header, z
+
+
+def replay(db, path: str) -> int:
+    """Apply WAL records to a freshly-loaded database. Returns the number of
+    records applied. Tolerates a torn final record (crash mid-append) and
+    applies a marked group of records only when all of it is whole."""
+    if not os.path.exists(path):
+        return 0
+    with open(path, "rb") as f:
+        raw = f.read()
+    applied = 0
+    records = _records(raw)
+    for header, z in records:
+        if header["op"] == "txn":
+            group = list(itertools.islice(records, header["n"]))
+            if len(group) < header["n"]:
+                break  # the group is torn: none of it happened
+        else:
+            group = [(header, z)]
+        for h, zz in group:
+            _apply(db, h, zz)
+            applied += 1
     return applied
+
+
+def _apply(db, header: dict, z) -> None:
+    """Apply one record."""
+    from adacom_tpu_torch import types as tt
+
+    op = header["op"]
+    if op == "create_table":
+        cols = []
+        for cname, tname, prec, scale in header["cols"]:
+            if tname == "DECIMAL":
+                ty = tt.DECIMAL(prec, scale)
+            else:
+                ty = tt.type_from_name(tname)
+            cols.append((cname, ty))
+        db.catalog.create_table(header["name"], cols, if_not_exists=True)
+    elif op == "drop_table":
+        db.catalog.drop_table(header["name"], if_exists=True)
+    elif op == "create_view":
+        db.catalog.create_view(header["name"], header["sql"],
+                               or_replace=True)
+    elif op == "drop_view":
+        db.catalog.views.pop(header["name"].lower(), None)
+    elif op == "create_index":
+        db.catalog.create_index(header["name"], header["table"],
+                                header["column"], header["unique"],
+                                if_not_exists=True)
+    elif op == "drop_index":
+        db.catalog.drop_index(header["name"], if_exists=True)
+    elif op == "insert":
+        table = db.catalog.get_table(header["table"])
+        data, validity = {}, {}
+        for c in header["cols"]:
+            arr = z[f"d.{c}"]
+            if arr.dtype.kind == "U":
+                arr = arr.astype(object)
+            data[c] = arr
+            if f"v.{c}" in z.files:
+                validity[c] = z[f"v.{c}"]
+        table.append_batch(data, validity or None)
+    elif op == "truncate":
+        db.catalog.get_table(header["table"]).truncate()
+    elif op == "delete":
+        table = db.catalog.get_table(header["table"])
+        table.flush()
+        # map global row positions onto the replay's segmentation
+        col0 = table.columns[table.column_order[0]]
+        grows = np.sort(z["rows"])
+        starts = np.cumsum([0] + [s.count for s in col0.segments])
+        seg_of = np.searchsorted(starts, grows, side="right") - 1
+        for si in np.unique(seg_of):
+            local = grows[seg_of == si] - starts[si]
+            table.mark_deleted(int(si), local, _log=False)

@@ -156,7 +156,22 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
       0.001 (each run verified) and q18_stream at SF 0.1 (the streamed
       counter > 0 with the sink, 0 without).
 
-Each main path (4, 5, 6, 6b, 9, 10b-d, 11, 12b, 13) runs with the launch counts
+14. the port's repairs of wrong answers of the JAX package (ROADMAP's
+   record of the faults the port repairs; PERF.md section 6):
+   a. after phase 6b, on t1 and t3: a filtered aggregate whose lower
+      bound is a negative literal launches B1 (t1) resp. B2 (t3) exactly
+      once and equals numpy, as the same query with a bound of 0 does;
+   b. after phase 13: a 10M-row table (k INTEGER, s VARCHAR, p
+      DECIMAL(12,2)): UPDATE ... SET s = 'x', p = p + 0.01 WHERE k % 7 = 0
+      with its WHERE on the device path equals numpy; an UPDATE violating
+      a UNIQUE index raises and changes neither the table nor the index;
+   c. lineitem at SF 0.1 written with COPY TO and read back with COPY FROM
+      into the DECIMAL schema: its values equal the generated ones, and
+      Q1 and Q6 (B3) equal the appender-loaded table's exactly;
+   d. a correlated NOT IN over 1M outer rows with NULLs on both sides
+      equals sqlite.
+
+Each main path (4, 5, 6, 6b, 9, 10b-d, 11, 12b, 13, 14a, 14b-d) runs with the launch counts
 set to 0 just before it and read just after. The last two lines are the
 kernels' JSON record and the result line. `python3 chip_smoke.py
 --tpch-oracle SF`, `--clickbench-oracle SCALE` and `--fuzz-oracle SEED`
@@ -891,7 +906,7 @@ def b2_path(hot_runs, n_rows=T3_ROWS):
           f"numpy; cold {t_cold * 1e3:.1f} ms; hot median of {hot_runs} "
           f"{t_hot * 1e3:.3f} ms")
     return dict(cold=t_cold, hot=t_hot, calls=list(rec.calls), db=db,
-                want=full)
+                want=full, g=g, v=v)
 
 
 T5_ROWS = 100_000_000
@@ -2891,6 +2906,248 @@ def tools_path(fuzz_oracle_proc, platform="cuda"):
     small_tools_step(platform)
 
 
+# phase 14's sizes (PERF.md section 4)
+QC_ROWS = 10_000_000  # the UPDATE table
+QC_SF = 0.1  # the COPY round trip of lineitem
+QC_OUTER = 1_000_000  # the correlated NOT IN's outer rows
+QC_NOT_IN = ("SELECT k, x FROM o WHERE x NOT IN (SELECT y FROM s WHERE "
+             "s.k = o.k) ORDER BY k, x NULLS FIRST")
+
+
+def negative_bounds_step(t1_con, n_rows, t3):
+    """14a: a filtered aggregate of t1 (phase 4) and a filtered GROUP BY of
+    t3 (phase 6), each with a negative lower bound, launch B1 resp. B2
+    exactly once and equal numpy; beside each, the same query with a
+    bound of 0 (the route a negative bound took before it folded)."""
+    import numpy as np
+
+    from adacom_tpu_torch.ops import fused_scan, grouped_scan
+
+    t0 = time.perf_counter()
+    hi = min(n_rows, 5_000_000)
+    out = []
+    for lo in (-20, 0):
+        sql = (f"SELECT count(*), sum(i), min(i), max(i) FROM t1 WHERE "
+               f"i >= {lo} AND i < {hi}")
+        before = fused_scan.KERNEL_LAUNCHES
+        got = t1_con.query(sql).fetchall()
+        delta = fused_scan.KERNEL_LAUNCHES - before
+        check(got == [(hi, hi * (hi - 1) // 2, 0, hi - 1)],
+              f"{sql}: {got} != numpy")
+        check(delta == 1, f"{sql}: {delta} B1 launches, not 1")
+        t = time.perf_counter()
+        check(t1_con.query(sql).fetchall() == got, f"{sql} (hot) differs")
+        out.append(f"t1 i >= {lo}: B1 x{delta}, hot "
+                   f"{(time.perf_counter() - t) * 1e3:.3f} ms")
+    g, v = t3["g"], t3["v"]
+    con = t3["db"].connect()
+    for lo in (-200_000, 0):
+        hi3 = 400_000
+        sql = (f"SELECT g, count(*), sum(v) FROM t3 WHERE v >= {lo} AND "
+               f"v < {hi3} GROUP BY g ORDER BY g")
+        keep = (v >= lo) & (v < hi3)
+        cnt = np.bincount(g[keep], minlength=T3_GROUPS)
+        sm = np.zeros(T3_GROUPS, np.int64)
+        np.add.at(sm, g[keep], v[keep].astype(np.int64))
+        before = grouped_scan.GROUPED_LAUNCHES
+        got = con.query(sql).fetchall()
+        delta = grouped_scan.GROUPED_LAUNCHES - before
+        check([(int(r[0]), int(r[1]), int(r[2])) for r in got] ==
+              [(i, int(cnt[i]), int(sm[i])) for i in range(T3_GROUPS)],
+              f"{sql}: {got} != numpy")
+        check(delta == 1, f"{sql}: {delta} B2 launches, not 1")
+        t = time.perf_counter()
+        check(con.query(sql).fetchall() == got, f"{sql} (hot) differs")
+        out.append(f"t3 v >= {lo}: B2 x{delta}, hot "
+                   f"{(time.perf_counter() - t) * 1e3:.3f} ms")
+    phase("queue C negative bounds", t0, "; ".join(out) + "; == numpy")
+
+
+def update_step(platform="cuda", n_rows=QC_ROWS):
+    """14b: UPDATE of a VARCHAR and a DECIMAL column of an n_rows table on
+    the card, its WHERE on the device path, against numpy; then an UPDATE
+    that violates a UNIQUE index raises and changes nothing."""
+    import numpy as np
+
+    import adacom_tpu_torch as att
+    from adacom_tpu_torch.exec import device_scan
+    from adacom_tpu_torch.main.connection import SQLError
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0x14B)
+    k = np.arange(n_rows, dtype=np.int32)
+    words = np.asarray(["a", "bb", "ccc", "dd", "e"], dtype=object)
+    s = words[rng.integers(0, len(words), n_rows)]
+    p = rng.integers(-10**6, 10**6, n_rows).astype(np.int64)  # cents
+    db = att.Database(platform=platform)
+    con = db.connect()
+    con.query("CREATE TABLE u(k INTEGER, s VARCHAR, p DECIMAL(12,2))")
+    app = con.appender("u")
+    for a in range(0, n_rows, CHUNK):
+        app.append_columns({"k": k[a:a + CHUNK], "s": s[a:a + CHUNK],
+                            "p": p[a:a + CHUNK]})
+    app.close()
+    db.catalog.get_column_segment_catalog().compact_all_segments()
+    t_load = time.perf_counter() - t0
+
+    def answers():
+        rows = con.query("SELECT s, count(*), sum(p) FROM u GROUP BY s "
+                         "ORDER BY s").fetchall()
+        return [(r[0], int(r[1]), round(float(r[2]) * 100)) for r in rows]
+
+    t = time.perf_counter()
+    runs = device_scan.RUNS
+    con.query("UPDATE u SET s = 'x', p = p + 0.01 WHERE k % 7 = 0")
+    t_upd = time.perf_counter() - t
+    check(device_scan.RUNS > runs, "the UPDATE's WHERE skipped the device")
+    hit = k % 7 == 0
+    s2 = np.where(hit, "x", s)
+    p2 = p + hit
+    want = [(w, int((s2 == w).sum()), int(p2[s2 == w].sum()))
+            for w in sorted(set(words) | {"x"})]
+    got = answers()
+    check(got == want, f"UPDATE u: {got} != numpy {want}")
+    t = time.perf_counter()
+    con.query("CREATE UNIQUE INDEX uk ON u(k)")
+    t_index = time.perf_counter() - t
+    idx = db.catalog.get_table("u").index_on("k")
+    probe = [(i, r.tolist()) for i, r in idx.lookup_eq(10)]
+    try:
+        con.query("UPDATE u SET k = 5 WHERE k BETWEEN 10 AND 11")
+        check(False, "an UPDATE violating UNIQUE(k) did not raise")
+    except SQLError:
+        pass
+    check(answers() == want and
+          [(i, r.tolist()) for i, r in idx.lookup_eq(10)] == probe and
+          con.query("SELECT count(*) FROM u WHERE k BETWEEN 10 AND 11"
+                    ).fetchall() == [(2,)],
+          "the failed UPDATE changed the table or its index")
+    db.close()
+    phase("queue C UPDATE", t0, f"{n_rows} rows (load {t_load:.2f} s): "
+          f"UPDATE of {int(hit.sum())} rows (VARCHAR, DECIMAL) "
+          f"{t_upd:.3f} s == numpy; UNIQUE index {t_index:.3f} s; a "
+          f"violating UPDATE raised and changed nothing")
+
+
+def copy_step(platform="cuda", sf=QC_SF):
+    """14c: lineitem at TPC-H SF sf written with COPY TO and read back
+    with COPY FROM into the DECIMAL schema answers Q1 and Q6 (B3) exactly
+    as the appender-loaded table."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import adacom_tpu_torch as att
+    from adacom_tpu_torch.bench import tpch
+    from adacom_tpu_torch.ops import grouped_scan
+
+    t0 = time.perf_counter()
+    li = tpch.generate_lineitem(sf)
+    d = tempfile.mkdtemp(prefix="adacom-copy-")
+    path = os.path.join(d, "lineitem.csv")
+    try:
+        answers, secs = {}, {}
+        for how in ("appender", "copy"):
+            db = att.Database(platform=platform)
+            con = db.connect()
+            t = time.perf_counter()
+            if how == "appender":
+                tpch.load_into_engine(con, {"lineitem": li})
+            else:
+                con.query(tpch.DDL["lineitem"])
+                n = con.query(f"COPY lineitem FROM '{path}' (HEADER)"
+                              ).scalar()
+                check(n == len(li["l_orderkey"]), f"COPY FROM read {n} rows")
+                col = db.catalog.get_table("lineitem").columns
+                for c in ("l_extendedprice", "l_discount", "l_shipdate"):
+                    got = np.concatenate([sg._host_values for sg in
+                                          col[c].segments])
+                    check(np.array_equal(got, li[c]),
+                          f"COPY FROM: {c} differs from the generated "
+                          f"values")
+            secs[how] = time.perf_counter() - t
+            db.catalog.get_column_segment_catalog().compact_all_segments()
+            before = grouped_scan.MULTI_LAUNCHES
+            answers[how] = {q: con.query(tpch.QUERIES[q]).fetchall()
+                            for q in (1, 6)}
+            check(grouped_scan.MULTI_LAUNCHES > before,
+                  f"Q1/Q6 on the {how}'s lineitem skipped B3")
+            if how == "appender":
+                t = time.perf_counter()
+                con.query(f"COPY lineitem TO '{path}' (HEADER)")
+                secs["copy to"] = time.perf_counter() - t
+            db.close()
+        check(answers["copy"] == answers["appender"],
+              f"Q1/Q6 after COPY: {answers['copy']} != "
+              f"{answers['appender']}")
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    phase("queue C COPY", t0, f"lineitem SF {sf}, {len(li['l_orderkey'])} "
+          f"rows: appender {secs['appender']:.2f} s, COPY TO "
+          f"{secs['copy to']:.2f} s ({size} B), COPY FROM "
+          f"{secs['copy']:.2f} s; Q1 and Q6 (B3) equal exactly")
+
+
+def not_in_step(platform="cuda", n_outer=QC_OUTER):
+    """14d: a correlated NOT IN over two tables with NULLs on both sides
+    (o: n_outer rows) equals sqlite."""
+    import sqlite3
+
+    import numpy as np
+
+    import adacom_tpu_torch as att
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0x14D)
+    ok_ = rng.integers(0, n_outer // 4, n_outer).astype(np.int32)
+    ox = rng.integers(0, 40, n_outer).astype(np.int32)
+    ox_ok = rng.random(n_outer) > 0.05
+    sk = rng.integers(0, n_outer // 3, n_outer).astype(np.int32)
+    sy = rng.integers(0, 40, n_outer).astype(np.int32)
+    sy_ok = rng.random(n_outer) > 0.02
+    db = att.Database(platform=platform)
+    con = db.connect()
+    con.query("CREATE TABLE o(k INTEGER, x INTEGER)")
+    con.query("CREATE TABLE s(k INTEGER, y INTEGER)")
+    for name, cols, valid in (("o", {"k": ok_, "x": ox}, {"x": ox_ok}),
+                              ("s", {"k": sk, "y": sy}, {"y": sy_ok})):
+        app = con.appender(name)
+        app.append_columns(cols, valid)
+        app.close()
+    t = time.perf_counter()
+    got = [(int(a), None if b is None else int(b))
+           for a, b in con.query(QC_NOT_IN).fetchall()]
+    t_engine = time.perf_counter() - t
+    db.close()
+    lite = sqlite3.connect(":memory:")
+    lite.execute("CREATE TABLE o(k INTEGER, x INTEGER)")
+    lite.execute("CREATE TABLE s(k INTEGER, y INTEGER)")
+    for name, a, b, v in (("o", ok_, ox, ox_ok), ("s", sk, sy, sy_ok)):
+        lite.executemany(f"INSERT INTO {name} VALUES (?, ?)", zip(
+            a.tolist(), [int(x) if keep else None
+                         for x, keep in zip(b.tolist(), v.tolist())]))
+    lite.execute("CREATE INDEX s_k ON s(k, y)")
+    t = time.perf_counter()
+    want = lite.execute(QC_NOT_IN).fetchall()
+    t_lite = time.perf_counter() - t
+    lite.close()
+    check(got == want, f"correlated NOT IN: {len(got)} rows != sqlite's "
+          f"{len(want)}")
+    phase("queue C NOT IN", t0, f"{n_outer} outer rows, NULLs on both "
+          f"sides: {len(got)} rows == sqlite; engine {t_engine:.3f} s, "
+          f"sqlite {t_lite:.3f} s")
+
+
+def queue_c_path(platform="cuda"):
+    """Phase 14b-d (14a runs on phases 4 and 6's tables, before they
+    close)."""
+    update_step(platform)
+    copy_step(platform)
+    not_in_step(platform)
+
+
 def main() -> int:
     import torch
 
@@ -3067,8 +3324,13 @@ def main() -> int:
     _zero_counts()
     t5_path(t3["db"].connect(), t3["want"])
     phase("t5 nulls", t0, f"launches on this path: {_counts_line()}")
+    # ---- 14a. negative bounds on t1 and t3 (B1, B2) ----------------------
+    t0 = time.perf_counter()
+    _zero_counts()
+    negative_bounds_step(con1, N_ROWS, t3)
+    phase("queue C a", t0, f"launches on this path: {_counts_line()}")
     t3["db"].close()
-    del t3["db"]
+    del t3["db"], t3["g"], t3["v"]
 
     # the sqlite oracles of phases 9 and 10d, started once no kernel is
     # being timed (ClickBench's after phase 8 has freed t4's host arrays):
@@ -3127,6 +3389,14 @@ def main() -> int:
         phase("tools", t0, f"launches on this path: {_counts_line()}")
         check(min(_launches()) > 0, f"phase 13 skipped a device tier: "
               f"{_counts_line()}")
+
+        # ---- 14b-d. UPDATE, COPY into DECIMAL, correlated NOT IN ----------
+        t0 = time.perf_counter()
+        _zero_counts()
+        queue_c_path()
+        phase("queue C", t0, f"launches on this path: {_counts_line()}")
+        check(grouped_scan.MULTI_LAUNCHES > 0,
+              "phase 14 launched no B3")
     finally:
         stop(tpch_oracle_proc)
         stop(cb_oracle)

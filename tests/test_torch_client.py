@@ -126,9 +126,17 @@ def test_copy_roundtrip(tmp_path):
     b = _both(cons, "SELECT SUM(i), COUNT(*), SUM(x), COUNT(s), MIN(d), "
                     "MAX(d) FROM t")
     assert _norm(a) == _norm(b)
-    # the file holds p as 0.07, 0.14, ...; COPY FROM reads it as DOUBLE and
-    # both packages cast it to p's scaled integer, truncating
-    _both(cons, "SELECT SUM(p), MAX(p) FROM t2")
+    # the file holds p as 0.07, 0.14, ...: the port reads each field as
+    # p's DECIMAL(10,2), so t2 holds t's values; the JAX package reads a
+    # DOUBLE and casts it to p's scaled integer unscaled, truncating
+    # (0.07 -> 0.00, 9.99 -> 0.09)
+    sql = "SELECT SUM(p), MAX(p) FROM {}"
+    assert _norm(cons["port"].query(sql.format("t2")).fetchall()) == \
+        _norm(cons["port"].query(sql.format("t")).fetchall()) == \
+        [(sum(k * 7 for k in range(5_000)) / 100, 4_999 * 7 / 100)]
+    cents = np.arange(5_000) * 7
+    assert _norm(cons["jax"].query(sql.format("t2")).fetchall()) == \
+        [(int((cents // 100).sum()) / 100, int(cents[-1] // 100) / 100)]
     # a GROUP BY over the NULL-able s: the JAX package puts the NULL rows
     # in the group of the value stored under them (ROADMAP queue C), so
     # numpy holds the port

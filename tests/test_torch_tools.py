@@ -82,8 +82,11 @@ def test_fuzz_differential_no_divergence(oracle7, route):
     assert res["divergences"] == []
     assert res["routes"]["device_scan"] > 0
     if route == "device":
-        # every query reads the table through the device path
-        assert res["routes"]["device_scan"] >= 50
+        # every query reads the table through the device path: the generic
+        # path or a fused tier (a negative bound folds into B1/B2's range)
+        fused = sum(res["routes"]["dist_stats"].get(k, 0) for k in (
+            "pallas_scan_agg", "pallas_grouped_agg", "pallas_multi_agg"))
+        assert res["routes"]["device_scan"] + fused >= 50
     # a CPU run launches no kernel
     assert [res["routes"][k] for k in ("B1", "B2", "B3")] == [0, 0, 0]
 

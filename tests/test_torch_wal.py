@@ -8,7 +8,8 @@ everything else exact. Beyond them: a checkpoint and a WAL written by either
 package open in the other; TPC-H at SF 0.01 loaded durably, compacted,
 checkpointed and reopened answers as the in-memory port does; DELETE and
 UPDATE ... WHERE on the generic device path reach the WAL; a tail torn
-inside a transaction replays the records before the tear in both packages;
+inside a transaction replays none of it in the port and the records
+before the tear in the JAX package;
 a checkpoint with short segments mid-table restores its deletes (the JAX
 package raises there, so the port is held against numpy)."""
 
@@ -313,9 +314,9 @@ def _fill(con, n=10_000):
 
 
 def _index(con):
-    """Three indexes, made after the UPDATEs of f: in both packages an
-    UPDATE re-appends rows whose old keys a UNIQUE index still holds, and
-    a UNIQUE index built over deleted rows counts them, so both raise."""
+    """Three indexes, made after the UPDATEs of f. f's are not UNIQUE: in
+    the JAX package a UNIQUE index built over deleted rows counts them, so
+    it would raise on f's (the port's skips them)."""
     con.query("CREATE INDEX fk ON f(k)")
     con.query("CREATE INDEX fg ON f(g)")
     con.query("CREATE UNIQUE INDEX eu ON e(i)")
@@ -511,9 +512,11 @@ def test_dml_on_the_generic_device_path_reaches_the_wal(tmp_path):
 
 
 def test_tail_torn_inside_a_transaction_replays_its_prefix(tmp_path):
-    """Records carry no commit marker (the JAX package's format): an UPDATE
-    logs its deletes, then the new rows; a tail torn in the last record
-    keeps the deletes and loses the rows, in both packages."""
+    """An UPDATE in a transaction logs its deletes, then the new rows; a
+    tail torn in the last record. The JAX package's records carry no
+    commit marker, so it replays the prefix: the deletes without the rows.
+    The port writes a marker before the transaction's records and replays
+    none of a torn one (storage/wal.py)."""
     got = {}
     for name, pkg in PKGS.items():
         d = str(tmp_path / name)
@@ -532,7 +535,8 @@ def test_tail_torn_inside_a_transaction_replays_its_prefix(tmp_path):
         db, con = _open(pkg, d)
         got[name] = con.query("SELECT count(*), max(i) FROM t").fetchall()
         db.close()
-    assert _norm(got["port"]) == _norm(got["jax"]) == [(9_000, 8_999)]
+    assert _norm(got["port"]) == [(10_000, 9_999)]
+    assert _norm(got["jax"]) == [(9_000, 8_999)]
 
 
 def test_short_segments_mid_table_keep_their_deletes(tmp_path):
