@@ -3,22 +3,46 @@
 Parity with the reference Catalog (src/catalog/catalog.cpp): CreateTable /
 GetEntry / DropTable, and ownership of the ColumnSegmentCatalog
 (reference Catalog::GetColumnSegmentCatalog, catalog.cpp:75 — there a
-process-global static; here per-database)."""
+process-global static; here per-database).
+
+Transactions (reference TransactionManager and LocalStorage, reduced to
+what the port needs): a `Transaction` is one connection's open write
+transaction. Its records collect in a group of its own and reach the WAL at
+COMMIT; the tables it writes are its own until then (one writer per
+table); the names it creates or drops are held until then; ROLLBACK undoes
+its catalog changes in reverse order. The catalog knows the open write
+transactions (`writers`): a checkpoint runs only when there is none, and a
+transaction registers under the catalog's lock, which a checkpoint holds
+throughout (main/database.py, storage/checkpoint.py)."""
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 from adacom_tpu_torch import types as tt
 from adacom_tpu_torch.catalog.segment_catalog import ColumnSegmentCatalog
 from adacom_tpu_torch.storage.index import SortedIndex
-from adacom_tpu_torch.storage.table import Table
+from adacom_tpu_torch.storage.table import Table, TransactionConflict
 from adacom_tpu_torch.storage.wal import RecordGroup
 
 
 class CatalogException(Exception):
     pass
+
+
+class Transaction:
+    """One connection's open write transaction: `token` (the connection's),
+    `log` (its records until COMMIT; None for an in-memory database), the
+    tables it owns, the undo of its catalog changes, and what its COMMIT
+    frees (the tables it dropped, kept until then)."""
+
+    def __init__(self, token: int, durable: bool):
+        self.token = token
+        self.log = RecordGroup() if durable else None
+        self.tables: List[Table] = []
+        self.undo: List[Callable[[], None]] = []
+        self.on_commit: List[Callable[[], None]] = []
 
 
 class Catalog:
@@ -30,6 +54,11 @@ class Catalog:
         self.views: Dict[str, str] = {}  # name -> SELECT sql
         self.indexes: Dict[str, SortedIndex] = {}
         self.wal = None  # attached by Database when durable
+        # tokens of the open write transactions (registered under _lock)
+        self.writers: Set[int] = set()
+        # ("r" | "i", name) -> token: a relation (table or view) or index
+        # name an open transaction created or dropped
+        self._held: Dict[Tuple[str, str], int] = {}
         self.segment_catalog = ColumnSegmentCatalog(config)
         # reference Catalog::Initialize starts background compaction when
         # adaptive mode is on (catalog.cpp:67-71; there it starts
@@ -40,16 +69,87 @@ class Catalog:
     def get_column_segment_catalog(self) -> ColumnSegmentCatalog:
         return self.segment_catalog
 
+    # ------------------------------------------------------------------
+    # transactions
+    # ------------------------------------------------------------------
+    def own(self, txn: Transaction, table: Table,
+            created: bool = False) -> None:
+        """`txn` writes `table`: from its first write the table is the
+        transaction's (TransactionConflict if another's). Registration
+        takes the catalog's lock, so no transaction starts writing while a
+        checkpoint runs."""
+        if table.write_txn == txn.token:
+            return  # only this transaction's end takes the table back
+        with self._lock:
+            if table.begin_write_txn(txn.token, txn.log, created):
+                txn.tables.append(table)
+            self.writers.add(txn.token)
+
+    def _claim(self, txn: Optional[Transaction], key: Tuple[str, str]):
+        """Under the lock, just before a change of the name `key`: a name
+        that another open transaction created or dropped takes no change
+        (its ROLLBACK would put back what the change replaced); `txn`
+        holds the names it changes until it ends."""
+        token = None if txn is None else txn.token
+        holder = self._held.get(key)
+        if holder is not None and holder != token:
+            raise TransactionConflict(
+                f"{key[1]!r} is being changed by another transaction")
+        if txn is not None:
+            self.writers.add(token)
+            self._held[key] = token
+
+    def _writes(self, txn: Optional[Transaction], table: Table) -> None:
+        """Under the lock: a catalog change that names `table`."""
+        if txn is None:
+            table.check_writer(None)
+        else:
+            self.own(txn, table)
+
+    def _log(self, txn: Optional[Transaction]):
+        """Where a catalog change's records go: the transaction's group,
+        else the WAL (None: not logged)."""
+        return self.wal if txn is None else txn.log
+
+    def end_transaction(self, txn: Transaction, commit: bool) -> None:
+        """COMMIT: the transaction's records reach the WAL in one write
+        (fsync), then its tables are everyone's. ROLLBACK: its catalog
+        changes are undone, the last first, while it still owns its
+        tables (a table it created is dropped before anyone else may write
+        it), then its tables go back to their committed rows and masks.
+        Either way its names and its registration go."""
+        if commit:
+            if txn.log is not None:
+                self.wal.commit(txn.log)
+            for t in txn.tables:
+                t.end_write_txn(txn.token)
+            for f in txn.on_commit:
+                f()
+        with self._lock:
+            if not commit:
+                for f in reversed(txn.undo):
+                    f()
+                for t in txn.tables:
+                    t.rollback_write_txn(txn.token)
+            self._held = {k: v for k, v in self._held.items()
+                          if v != txn.token}
+            self.writers.discard(txn.token)
+
+    # ------------------------------------------------------------------
+    # tables, views, indexes
+    # ------------------------------------------------------------------
     def create_table(
         self, name: str, columns: List[tuple], if_not_exists: bool = False,
         unique: Sequence[Tuple[str, str]] = (),
         fill: Optional[Callable[[Table], None]] = None,
+        txn: Optional[Transaction] = None,
     ) -> Table:
         """`unique`: [(index name, column)] of the UNIQUE indexes of the
         table's PRIMARY KEY / UNIQUE constraints (an index name that exists
         is skipped); `fill(table)` appends the rows of CREATE TABLE AS.
-        The table, its indexes and its rows reach the WAL in one write (one
-        marked group), and the table is published only after all of it."""
+        The table, its indexes and its rows reach the log in one group
+        (the WAL at once, or `txn`'s group), and the table is published
+        only after all of it; in a transaction it is the transaction's."""
         key = name.lower()
         with self._lock:
             if key in self.tables or key in self.views:
@@ -57,7 +157,8 @@ class Catalog:
                     return self.tables[key]
                 raise CatalogException(f"table {name!r} already exists")
             t = Table(key, columns, self.config, self.bm, self.segment_catalog)
-            group = None if self.wal is None else RecordGroup()
+            log = self._log(txn)
+            group = None if log is None else RecordGroup()
             if group is not None:
                 group.log_create_table(key, [
                     (c, ty.name, ty.precision, ty.scale) for c, ty in columns
@@ -74,12 +175,27 @@ class Catalog:
                     group.log_create_index(iname, key, idx.column, True)
             if fill is not None:
                 fill(t)
+            for held in [("r", key)] + [("i", n) for n in indexes]:
+                self._claim(txn, held)
             if group is not None:
-                self.wal.write_group(group)
+                log.write_group(group)
             t.wal = self.wal
+            if txn is not None:
+                # the transaction's from before it is published: no other
+                # connection writes it before the COMMIT
+                self.own(txn, t, created=True)
+                txn.undo.append(lambda: self._unpublish(key, t, indexes))
             self.indexes.update(indexes)
             self.tables[key] = t
             return t
+
+    def _unpublish(self, key: str, t: Table, indexes: Dict[str, SortedIndex]):
+        """Undo of CREATE TABLE: the table and its indexes go."""
+        del self.tables[key]
+        for iname in indexes:
+            del self.indexes[iname]
+        t.set_dropped(True)
+        self._release(t)
 
     def get_table(self, name: str) -> Table:
         t = self.tables.get(name.lower())
@@ -90,42 +206,76 @@ class Catalog:
     def has_table(self, name: str) -> bool:
         return name.lower() in self.tables
 
-    def drop_table(self, name: str, if_exists: bool = False) -> None:
+    def drop_table(self, name: str, if_exists: bool = False,
+                   txn: Optional[Transaction] = None) -> None:
+        """In a transaction the table and its indexes are kept until COMMIT
+        frees them; ROLLBACK puts them back."""
         key = name.lower()
         with self._lock:
-            t = self.tables.pop(key, None)
+            t = self.tables.get(key)
             if t is None:
                 if if_exists:
                     return
                 raise CatalogException(f"table {name!r} does not exist")
-            if self.wal is not None:
-                self.wal.log_drop_table(key)
-            for iname in [n for n, i in self.indexes.items() if i.table is t]:
+            self._writes(txn, t)
+            self._claim(txn, ("r", key))
+            t.set_dropped(True)
+            log = self._log(txn)
+            if log is not None:
+                log.log_drop_table(key)
+            del self.tables[key]
+            indexes = {n: i for n, i in self.indexes.items() if i.table is t}
+            for iname in indexes:
                 self.indexes.pop(iname)
-            cache = getattr(t, "_pool_cache", None)
-            if cache is not None:
-                cache.clear()
-            for c in t.column_order:
-                col = t.columns[c]
-                for s in col.segments:
-                    self.segment_catalog.remove_column_segment(s)
-                    self.bm.add_to_data_size(-s.footprint_bytes())
-                    s.page_out()
+            if txn is None:
+                self._release(t)
+                return
 
-    def create_view(self, name: str, sql: str, or_replace: bool = False):
+            def restore():
+                self.tables[key] = t
+                self.indexes.update(indexes)
+                t.set_dropped(False)
+
+            txn.undo.append(restore)
+            txn.on_commit.append(lambda: self._release(t))
+
+    def _release(self, t: Table) -> None:
+        """A dropped table's memory: its pool cache and its segments."""
+        cache = getattr(t, "_pool_cache", None)
+        if cache is not None:
+            cache.clear()
+        for c in t.column_order:
+            col = t.columns[c]
+            for s in col.segments:
+                col.release(s)
+            col.segments = []
+
+    def create_view(self, name: str, sql: str, or_replace: bool = False,
+                    txn: Optional[Transaction] = None):
         key = name.lower()
         with self._lock:
             if key in self.tables:
                 raise CatalogException(f"{name!r} is a table")
             if key in self.views and not or_replace:
                 raise CatalogException(f"view {name!r} already exists")
-            if self.wal is not None:
-                self.wal.log_create_view(key, sql)
+            self._claim(txn, ("r", key))
+            log = self._log(txn)
+            if log is not None:
+                log.log_create_view(key, sql)
+            old = self.views.get(key)
+            self.views[key] = sql
+            if txn is not None:
+                txn.undo.append(lambda: self._set_view(key, old))
+
+    def _set_view(self, key: str, sql: Optional[str]) -> None:
+        if sql is None:
+            self.views.pop(key, None)
+        else:
             self.views[key] = sql
 
     def create_index(self, name: str, table_name: str, column: str,
-                     unique: bool = False, if_not_exists: bool = False
-                     ) -> SortedIndex:
+                     unique: bool = False, if_not_exists: bool = False,
+                     txn: Optional[Transaction] = None) -> SortedIndex:
         """Reference ART index creation (CREATE INDEX / PRIMARY KEY)."""
         key = name.lower()
         with self._lock:
@@ -134,12 +284,21 @@ class Catalog:
                     return self.indexes[key]
                 raise CatalogException(f"index {name!r} already exists")
             table = self.get_table(table_name)
+            self._writes(txn, table)
             idx = self._new_index(key, table, column, unique)
+            self._claim(txn, ("i", key))
             self.indexes[key] = idx
             table.indexes.append(idx)
-            if self.wal is not None:
-                self.wal.log_create_index(key, table.name, idx.column, unique)
+            log = self._log(txn)
+            if log is not None:
+                log.log_create_index(key, table.name, idx.column, unique)
+            if txn is not None:
+                txn.undo.append(lambda: self._unindex(key, idx))
             return idx
+
+    def _unindex(self, key: str, idx: SortedIndex) -> None:
+        del self.indexes[key]
+        idx.table.indexes = [i for i in idx.table.indexes if i is not idx]
 
     @staticmethod
     def _new_index(key: str, table: Table, column: str,
@@ -153,23 +312,40 @@ class Catalog:
         idx.build()  # raises ConstraintViolation on existing duplicates
         return idx
 
-    def drop_index(self, name: str, if_exists: bool = False) -> None:
+    def drop_index(self, name: str, if_exists: bool = False,
+                   txn: Optional[Transaction] = None) -> None:
         key = name.lower()
         with self._lock:
-            idx = self.indexes.pop(key, None)
+            idx = self.indexes.get(key)
             if idx is None:
                 if if_exists:
                     return
                 raise CatalogException(f"index {name!r} does not exist")
-            idx.table.indexes = [i for i in idx.table.indexes if i is not idx]
-            if self.wal is not None:
-                self.wal.log_drop_index(key)
+            self._writes(txn, idx.table)
+            self._claim(txn, ("i", key))
+            self._unindex(key, idx)
+            log = self._log(txn)
+            if log is not None:
+                log.log_drop_index(key)
+            if txn is not None:
+                def restore():
+                    self.indexes[key] = idx
+                    idx.table.indexes.append(idx)
 
-    def drop_view(self, name: str) -> None:
+                txn.undo.append(restore)
+
+    def drop_view(self, name: str, txn: Optional[Transaction] = None) -> None:
         key = name.lower()
         with self._lock:
-            if self.views.pop(key, None) is not None and self.wal is not None:
-                self.wal.log_drop_view(key)
+            if key not in self.views:
+                return
+            self._claim(txn, ("r", key))
+            old = self.views.pop(key)
+            log = self._log(txn)
+            if log is not None:
+                log.log_drop_view(key)
+            if txn is not None:
+                txn.undo.append(lambda: self._set_view(key, old))
 
     def attach_wal(self, wal) -> None:
         """Durable mode: route DDL/DML through the write-ahead log."""

@@ -147,11 +147,11 @@ class Connection:
         return self.cursor().execute(sql, params)
 
     def commit(self):
-        if self._raw is not None and self._raw._in_txn:
+        if self._raw is not None and self._raw._txn is not None:
             self._raw.query("COMMIT")
 
     def rollback(self):
-        if self._raw is not None and self._raw._in_txn:
+        if self._raw is not None and self._raw._txn is not None:
             self._raw.query("ROLLBACK")
 
     def close(self):

@@ -1,6 +1,11 @@
 """Appender: bulk columnar ingest (reference Appender, src/main/appender.cpp:51;
 BeginRow/EndRow buffered, flushed in chunks — here also a first-class
-columnar `append_column` path, the TPU-native way to ingest)."""
+columnar `append_column` path, the TPU-native way to ingest).
+
+Each flush is a write of its connection: inside the connection's
+transaction it is the transaction's, outside one it is logged at once; a
+table another transaction owns refuses it (SQLError) and keeps none of
+its rows."""
 
 from __future__ import annotations
 
@@ -9,6 +14,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from adacom_tpu_torch.main import coerce
+from adacom_tpu_torch.main.connection import SQLError
+from adacom_tpu_torch.storage.table import TransactionConflict
 
 FLUSH_ROWS = 1 << 18
 
@@ -17,7 +24,6 @@ class Appender:
     def __init__(self, connection, table_name: str):
         self.con = connection
         self.table = connection.db.catalog.get_table(table_name)
-        connection._txn_touch(self.table)
         self._row: List[Any] = []
         self._buffers: List[List[Any]] = [[] for _ in self.table.column_order]
         self._buffered = 0
@@ -55,10 +61,17 @@ class Appender:
     def append_columns(self, data: Dict[str, np.ndarray],
                        validity: Optional[Dict[str, np.ndarray]] = None):
         self._flush_rows()
-        self.table.append_batch(
+        self._append(
             {k.lower(): v for k, v in data.items()},
             {k.lower(): v for k, v in (validity or {}).items()} or None,
         )
+
+    def _append(self, data, validity):
+        try:
+            self.table.append_batch(data, validity,
+                                    token=self.con._txn_touch(self.table))
+        except TransactionConflict as e:
+            raise SQLError(str(e)) from e
 
     # -------- lifecycle --------
     def _flush_rows(self):
@@ -77,7 +90,7 @@ class Appender:
             data[cname] = arr
             if has_null:
                 vd[cname] = np.asarray([v is not None for v in buf], dtype=bool)
-        self.table.append_batch(data, vd if vd else None)
+        self._append(data, vd if vd else None)
         self._buffers = [[] for _ in self.table.column_order]
         self._buffered = 0
 

@@ -10,6 +10,7 @@ reference's 10k-sequential-lookup benchmarks."""
 
 from __future__ import annotations
 
+import itertools
 import os
 import tempfile
 import time
@@ -24,10 +25,11 @@ from adacom_tpu_torch.exec.executor import Executor, Mat
 from adacom_tpu_torch.main import coerce
 from adacom_tpu_torch.main.result import QueryResult
 from adacom_tpu_torch.sql import ast
-from adacom_tpu_torch.catalog.catalog import CatalogException
+from adacom_tpu_torch.catalog.catalog import CatalogException, Transaction
 from adacom_tpu_torch.sql.binder import Binder, BindError
 from adacom_tpu_torch.sql.optimizer import optimize
 from adacom_tpu_torch.sql.parser import parse
+from adacom_tpu_torch.storage.table import TransactionConflict
 
 
 # the Chrome trace PRAGMA tpu_profile_stop writes into the trace directory
@@ -38,15 +40,20 @@ class SQLError(Exception):
     pass
 
 
+# connection tokens: one per connection for the life of the process, so a
+# new connection never inherits what a collected one owned (id() may repeat)
+_TOKENS = itertools.count(1)
+
+
 class Connection:
     def __init__(self, database):
         self.db = database
         self.executor = Executor(database)
-        self._in_txn = False
-        self._txn_snapshot = None
+        # the open transaction (BEGIN .. COMMIT/ROLLBACK), None in autocommit
+        self._txn: Optional[Transaction] = None
         self.last_profile: Optional[dict] = None
         # MVCC identity: write-ownership token + reader visibility key
-        self._token = id(self)
+        self._token = next(_TOKENS)
         self.executor.conn_token = self._token
         self._prepared: dict = {}  # name -> PreparedStatement
 
@@ -121,14 +128,22 @@ class Connection:
 
     # ------------------------------------------------------------------
     def _execute_stmt(self, stmt, key, lits, structural, stmt_idx, sql):
+        try:
+            return self._dispatch(stmt, key, lits, structural, stmt_idx, sql)
+        except TransactionConflict as e:
+            raise SQLError(str(e)) from e
+
+    def _dispatch(self, stmt, key, lits, structural, stmt_idx, sql):
         t0 = time.perf_counter()
         self.db.buffer_manager.begin_statement()
+        txn = self._txn
         if isinstance(stmt, ast.SelectStmt):
             res = self._execute_select(stmt, key, lits, structural, stmt_idx, sql)
         elif isinstance(stmt, ast.CreateTableStmt):
             res = self._execute_create_table(stmt, lits)
         elif isinstance(stmt, ast.CreateViewStmt):
-            self.db.catalog.create_view(stmt.name, stmt.select_sql, stmt.or_replace)
+            self.db.catalog.create_view(stmt.name, stmt.select_sql,
+                                        stmt.or_replace, txn=txn)
             self._bump_catalog_version()
             res = None
         elif isinstance(stmt, ast.InsertStmt):
@@ -143,18 +158,20 @@ class Connection:
             try:
                 self.db.catalog.create_index(
                     stmt.name, stmt.table, stmt.column, stmt.unique,
-                    stmt.if_not_exists)
+                    stmt.if_not_exists, txn=txn)
             except ConstraintViolation as e:
                 raise SQLError(str(e)) from e
             self._bump_catalog_version()
             res = None
         elif isinstance(stmt, ast.DropStmt):
             if stmt.kind == "view":
-                self.db.catalog.drop_view(stmt.name)
+                self.db.catalog.drop_view(stmt.name, txn=txn)
             elif stmt.kind == "index":
-                self.db.catalog.drop_index(stmt.name, stmt.if_exists)
+                self.db.catalog.drop_index(stmt.name, stmt.if_exists,
+                                           txn=txn)
             else:
-                self.db.catalog.drop_table(stmt.name, stmt.if_exists)
+                self.db.catalog.drop_table(stmt.name, stmt.if_exists,
+                                           txn=txn)
             self._bump_catalog_version()
             res = None
         elif isinstance(stmt, ast.TransactionStmt):
@@ -169,7 +186,9 @@ class Connection:
         elif isinstance(stmt, ast.CopyStmt):
             res = self._execute_copy(stmt, lits)
         elif isinstance(stmt, ast.CheckpointStmt):
-            self.db.checkpoint()
+            if not self.db.checkpoint():
+                raise SQLError("cannot CHECKPOINT while a write transaction "
+                               "is open")
             res = None
         elif isinstance(stmt, ast.DescribeStmt):
             res = self._execute_describe(stmt)
@@ -191,7 +210,7 @@ class Connection:
             raise SQLError(f"unsupported statement {type(stmt).__name__}")
         if isinstance(stmt, (ast.InsertStmt, ast.DeleteStmt, ast.UpdateStmt,
                              ast.CreateTableStmt, ast.DropStmt)) and \
-                not self._in_txn:
+                self._txn is None:
             self.db.maybe_autocheckpoint()
         if self.db.config.enable_profiling:
             prof = self.last_profile if isinstance(stmt, ast.SelectStmt) and \
@@ -288,7 +307,8 @@ class Connection:
             cols = [(n, t) for n, t in zip(mat.names, mat.types)]
             self.db.catalog.create_table(
                 stmt.name, cols, stmt.if_not_exists,
-                fill=lambda table: self._append_mat(table, mat))
+                fill=lambda table: self._append_mat(table, mat),
+                txn=self._txn)
             self._bump_catalog_version()
             return None
         cols = []
@@ -300,13 +320,14 @@ class Connection:
                    f"{stmt.name}_{col}", col)
                   for kind, col in (stmt.constraints or ())]
         self.db.catalog.create_table(stmt.name, cols, stmt.if_not_exists,
-                                     unique=unique)
+                                     unique=unique, txn=self._txn)
         self._bump_catalog_version()
         return None
 
-    def _append_mat(self, table, mat: Mat):
+    def _append_mat(self, table, mat: Mat, token: Optional[int] = None):
         """Append a SELECT's rows by position; a column of another type is
-        cast into the table column's, by UPDATE's rule (main/coerce.py)."""
+        cast into the table column's, by UPDATE's rule (main/coerce.py).
+        `token`: the writing transaction's (Table.append_batch)."""
         by_pos = {}
         vd = {}
         for i, cname in enumerate(table.column_order):
@@ -326,19 +347,19 @@ class Connection:
             by_pos[cname] = src
             if mat.valids[i] is not None:
                 vd[cname] = mat.valids[i]
-        table.append_batch(by_pos, vd if vd else None)
+        table.append_batch(by_pos, vd if vd else None, token=token)
         table.flush()
 
     def _execute_insert(self, stmt: ast.InsertStmt, lits=()):
         table = self.db.catalog.get_table(stmt.table)
-        self._txn_touch(table)
+        token = self._txn_touch(table)
         if stmt.select is not None:
             binder = Binder(self.db.catalog, self.db.config)
             plan = optimize(binder.bind_select(stmt.select), set())
             mat = self.executor.execute(plan, lits)
             if stmt.columns is not None and [c.lower() for c in stmt.columns] != table.column_order:
                 raise SQLError("INSERT column list must match table order")
-            self._append_mat(table, mat)
+            self._append_mat(table, mat, token)
             return None
         cols = stmt.columns or table.column_order
         cols = [c.lower() for c in cols]
@@ -384,7 +405,7 @@ class Connection:
             batch[c] = np.zeros(n, dtype=col.ltype.np_dtype)
             vbatch[c] = np.zeros(n, dtype=bool)
             any_null = True
-        table.append_batch(batch, vbatch if any_null else None)
+        table.append_batch(batch, vbatch if any_null else None, token=token)
         return None
 
     def _filter_row_matches(self, table_name: str, where, lits=()):
@@ -430,8 +451,8 @@ class Connection:
 
     def _execute_delete(self, stmt: ast.DeleteStmt, lits=()):
         table = self.db.catalog.get_table(stmt.table)
-        self._txn_touch(table)
-        if stmt.where is None and not self._in_txn:
+        token = self._txn_touch(table)
+        if stmt.where is None and token is None:
             # truncate IN PLACE: indexes and views on the table survive
             # (the old drop-and-recreate silently lost UNIQUE enforcement)
             table.truncate()
@@ -445,14 +466,14 @@ class Connection:
             updates = [(i, np.arange(s.count))
                        for i, s in enumerate(col0.segments) if s.count]
             if updates:
-                table.mark_deleted_many(updates)
+                table.mark_deleted_many(updates, token=token)
             return None
         # collect matches first, publish once: the statement's delete masks
         # become visible to reader snapshots atomically
         _get, _snap, updates = self._filter_row_matches(stmt.table,
                                                         stmt.where, lits)
         if updates:
-            table.mark_deleted_many(updates)
+            table.mark_deleted_many(updates, token=token)
         return None
 
     def _execute_update(self, stmt: ast.UpdateStmt, lits=()):
@@ -466,7 +487,7 @@ class Connection:
         from adacom_tpu_torch.sql.binder import Scope
 
         table = self.db.catalog.get_table(stmt.table)
-        self._txn_touch(table)
+        token = self._txn_touch(table)
         get, snap, updates = self._filter_row_matches(stmt.table, stmt.where,
                                                       lits)
         if not updates:
@@ -501,94 +522,40 @@ class Connection:
             valid[cname] = None if ok is None or ok.all() else ok.copy()
         table.replace_rows(updates, data,
                            {c: v for c, v in valid.items() if v is not None}
-                           or None)
+                           or None, token=token)
         return None
 
     # ------------------------------------------------------------------
-    def _txn_touch(self, table):
-        if self._in_txn and self._txn_snapshot is not None:
-            from adacom_tpu_torch.storage.table import TransactionConflict
-
-            name = table.name
-            try:
-                # pins the committed watermark + delete-mask snapshot so
-                # concurrent readers keep seeing only committed state,
-                # and rejects a second concurrent writer (reference
-                # optimistic write-write conflict abort)
-                table.begin_write_txn(self._token)
-            except TransactionConflict as e:
-                raise SQLError(str(e)) from e
-            if name not in self._txn_snapshot:
-                # seal staged rows into segments first: rollback truncation
-                # drops the staging buffers, which would otherwise lose
-                # pre-transaction rows that were still staged
-                table.flush()
-                self._txn_snapshot[name] = (
-                    table.row_count(),
-                    {k: v.copy() for k, v in table._deletes.items()},
-                )
+    def _txn_touch(self, table) -> Optional[int]:
+        """The write token of this connection's next write to `table`: in a
+        transaction, its first write makes the table the transaction's
+        (TransactionConflict if another transaction owns it; concurrent
+        readers keep seeing the committed rows); outside one None, an
+        autocommit write, which the table refuses while a transaction owns
+        it."""
+        if self._txn is None:
+            return None
+        self.db.catalog.own(self._txn, table)
+        return self._txn.token
 
     def _execute_txn(self, stmt: ast.TransactionStmt):
-        wal = self.db.wal
         if stmt.action == "begin":
-            self._in_txn = True
-            self._txn_snapshot = {}
-            if wal is not None:
-                wal.begin()
-        elif stmt.action == "commit":
-            snap = self._txn_snapshot or {}
-            for name in snap:
-                try:
-                    self.db.catalog.get_table(name).end_write_txn(
-                        self._token)
-                except Exception:
-                    pass
-            self._in_txn = False
-            self._txn_snapshot = None
-            if wal is not None:
-                wal.commit()
+            if self._txn is not None:
+                raise SQLError("a transaction is already open")
+            self._txn = Transaction(self._token, self.db.wal is not None)
+            return None
+        txn = self._txn
+        if txn is None:
+            return None
+        commit = stmt.action == "commit"
+        # a COMMIT whose WAL write raises leaves the transaction open
+        self.db.catalog.end_transaction(txn, commit)
+        self._txn = None
+        if commit:
             self.db.maybe_autocheckpoint()
-        elif stmt.action == "rollback":
-            if wal is not None:
-                wal.abort()
-            if self._txn_snapshot:
-                for name, (nrows, deletes) in self._txn_snapshot.items():
-                    try:
-                        table = self.db.catalog.get_table(name)
-                    except Exception:
-                        continue
-                    self._truncate_to(table, nrows)
-                    table._deletes = deletes
-                    table.end_write_txn(self._token)
-            self._in_txn = False
-            self._txn_snapshot = None
+        elif txn.undo:
+            self._bump_catalog_version()  # plans of undone tables/views
         return None
-
-    def _truncate_to(self, table, nrows: int):
-        # staged rows may include pre-snapshot data (appends unseal the
-        # trailing partial segment back into staging): seal everything
-        # into segments first, then truncate by row position
-        table.flush()
-        for cname in table.column_order:
-            col = table.columns[cname]
-            total = 0
-            keep = []
-            for s in col.segments:
-                if total + s.count <= nrows:
-                    keep.append(s)
-                    total += s.count
-                elif total < nrows:
-                    # partial segment: re-stage the prefix
-                    prefix = s._host_values[: nrows - total]
-                    pv = s._validity_np[: nrows - total] if s._validity_np is not None else None
-                    col.segments = keep
-                    col.stage(prefix, pv)
-                    total = nrows
-                    s.page_out()
-                    break
-                else:
-                    s.page_out()
-            col.segments = [s for s in col.segments if s in keep] if total >= nrows else col.segments
 
     # ------------------------------------------------------------------
     def _execute_pragma(self, stmt: ast.PragmaStmt):
@@ -740,7 +707,8 @@ class Connection:
             data = dict(zip(table.column_order, cols))
             validity = {c: v for c, v in zip(table.column_order, valids)
                         if v is not None}
-            table.append_batch(data, validity or None)
+            table.append_batch(data, validity or None,
+                               token=self._txn_touch(table))
             table.flush()
             n = len(cols[0]) if cols else 0
             return self._scalar_result("count", tt.BIGINT, n)

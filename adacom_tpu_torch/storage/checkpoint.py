@@ -10,7 +10,26 @@ Packed words are not stored: on load, each stored segment becomes one
 segment again, and those whose state was ``packed`` are compacted again
 with their codec. A reopened segment starts paged out,
 so compaction only flips its state and the first query that reads it
-uploads and encodes it on the database's device."""
+uploads and encodes it on the database's device.
+
+A checkpoint is a consistent cut: `Database.checkpoint` writes one only
+while no write transaction is open (the reference's
+TransactionManager::CanCheckpoint), and holds, from the first read until
+CURRENT is published and the WAL truncated, these locks, taken in this
+order:
+
+1. the database's checkpoint lock (one checkpoint at a time; `_ckpt_seq`);
+2. the catalog's lock (no table is created or dropped, no transaction
+   registers its first write);
+3. every table's append lock, in name order (no row, delete or record
+   reaches a table or the WAL).
+
+Every other path takes a subset in the same order: the catalog's lock
+before a table's (CREATE TABLE AS fills its new table, a transaction's
+first write of a table registers), and the WAL's lock last, inside a
+table's or the catalog's. No path takes the catalog's lock while it holds a
+table's. `write_checkpoint` runs inside all of them, so it flushes with
+`Table.flush_locked`."""
 
 from __future__ import annotations
 
@@ -39,11 +58,13 @@ def _write_column(path: str, tname: str, col) -> None:
 
 
 def write_checkpoint(db, path: str) -> None:
+    """Every table, view and index into `path`; the caller holds the locks
+    of the module docstring."""
     os.makedirs(path, exist_ok=True)
     manifest: dict = {"version": 1, "tables": {}}
     columns = []
     for tname, table in db.catalog.tables.items():
-        table.flush()
+        table.flush_locked()
         tinfo = {"columns": []}
         for cname in table.column_order:
             col = table.columns[cname]

@@ -283,6 +283,26 @@ class Column:
             self._staging = []
             self._staged_rows = 0
 
+    def release(self, seg: ColumnSegment) -> None:
+        """A segment leaves the column: off the segment catalog, its bytes
+        off the buffer manager's count, its device copy freed."""
+        self.bm.add_to_data_size(-seg.footprint_bytes())
+        if self.seg_catalog is not None:
+            self.seg_catalog.remove_column_segment(seg)
+        seg.page_out()
+
+    def truncate_rows(self, n: int) -> None:
+        """Keep the segments of the first `n` rows, which end on a segment
+        boundary (the column is flushed), and release the rest."""
+        keep, total = [], 0
+        for seg in self.segments:
+            if total < n:
+                keep.append(seg)
+                total += seg.count
+            else:
+                self.release(seg)
+        self.segments = keep
+
     def unseal_last_partial(self):
         """Pull a trailing partial segment back into staging so appends can
         continue filling it (reference: Uncompact-then-Append)."""
@@ -292,10 +312,7 @@ class Column:
         if last.count >= self.config.segment_rows:
             return
         self.segments.pop()
-        if self.seg_catalog is not None:
-            self.seg_catalog.remove_column_segment(last)
-        self.bm.add_to_data_size(-last.footprint_bytes())
-        last.page_out()
+        self.release(last)
         vals = last._host_values
         mask = last._validity_np
         self._staging = [(vals, mask)]
@@ -346,13 +363,21 @@ class Table:
         # while a transaction WRITES this table, other connections clamp
         # scans to the committed watermark and read the committed delete
         # masks; the writer reads its own rows live. Commit publishes,
-        # rollback truncates back. One write transaction per table at a
-        # time (a second writer gets a TransactionConflict, the
-        # reference's optimistic-conflict abort).
+        # rollback truncates back. One writer per table: while a
+        # transaction owns the table, every write of anyone else (a second
+        # transaction's or an autocommit statement's, an appender's flush)
+        # gets a TransactionConflict and changes nothing (the reference's
+        # optimistic-conflict abort). The check runs under the append lock
+        # in the same section as the write. The owner's records go to its
+        # transaction's group (`txn_log`), everyone else's to `wal`.
         self.write_txn: Optional[int] = None  # owning connection token
+        self.txn_log = None  # the owner's RecordGroup (None in memory)
         self.committed_rows: Optional[int] = None
         self.committed_deletes: Optional[Dict[int, np.ndarray]] = None
         self.no_unseal = False  # fresh segments only while a txn writes
+        # set (under the append lock) before the DROP's record is logged:
+        # a writer holding the table object writes no record after it
+        self.dropped = False
         # secondary indexes (storage/index.py; reference ART per-table list)
         self.indexes: list = []
         # held while an auto-index is counted, built and published
@@ -368,39 +393,73 @@ class Table:
         return self.columns[self.column_order[0]].row_count()
 
     # ---------------- ingest ----------------
-    def append_batch(self, data: Dict[str, np.ndarray], validity: Optional[Dict[str, np.ndarray]] = None):
-        """Append aligned column arrays (one batch of rows)."""
+    def append_batch(self, data: Dict[str, np.ndarray],
+                     validity: Optional[Dict[str, np.ndarray]] = None,
+                     token: Optional[int] = None):
+        """Append aligned column arrays (one batch of rows). `token`: the
+        writing transaction's (None outside one); a table another
+        transaction owns raises TransactionConflict."""
         with self._append_lock:
+            self._check_writer(token)
             normalized = self._normalize(data)
             self._check_unique(normalized)
-            if self.wal is not None:
-                self._log_insert(self.wal, normalized, validity)
+            log = self._log()
+            if log is not None:
+                self._log_insert(log, normalized, validity)
             self._stage(normalized, validity)
 
     def replace_rows(self, updates, data: Dict[str, np.ndarray],
-                     validity: Optional[Dict[str, np.ndarray]] = None):
+                     validity: Optional[Dict[str, np.ndarray]] = None,
+                     token: Optional[int] = None):
         """UPDATE's publish: delete `updates` ([(segment index, rows)]) and
         append their new versions `data` in one step under the append
         lock, so a reader's snapshot sees both or neither. Every check runs
-        first (types, UNIQUE on the keys after the update, the old versions
-        gone), so a statement that raises changes nothing. The dictionary
-        of a VARCHAR column may keep strings of a failed statement, which
-        no row references."""
+        first (the writer, types, UNIQUE on the keys after the update, the
+        old versions gone), so a statement that raises changes nothing.
+        The dictionary of a VARCHAR column may keep strings of a failed
+        statement, which no row references."""
         with self._append_lock:
+            self._check_writer(token)
             self.flush_locked()
             normalized = self._normalize(data)
             masks = self._masks_with(updates)
             self._check_unique(normalized, masks)
-            if self.wal is not None:
+            log = self._log()
+            if log is not None:
                 # the deletes and the rows reach the log in one write (one
                 # marked group) while the lock orders them among appends
                 group = RecordGroup()
                 self._log_deletes(group, updates)
                 self._log_insert(group, normalized, validity)
-                self.wal.write_group(group)
+                log.write_group(group)
             self._deletes = masks
             self._has_deletes = True
             self._stage(normalized, validity)
+
+    def _check_writer(self, token: Optional[int]) -> None:
+        """Under the append lock: a dropped table, or one that another
+        transaction owns, takes no write."""
+        if self.dropped:
+            raise TransactionConflict(f"table {self.name!r} was dropped")
+        if self.write_txn is not None and self.write_txn != token:
+            raise TransactionConflict(
+                f"table {self.name!r} is being written by another "
+                "transaction")
+
+    def check_writer(self, token: Optional[int]) -> None:
+        """A catalog change that names the table (CREATE INDEX, DROP):
+        refused while another transaction owns it."""
+        with self._append_lock:
+            self._check_writer(token)
+
+    def set_dropped(self, dropped: bool) -> None:
+        with self._append_lock:
+            self.dropped = dropped
+
+    def _log(self):
+        """Under the append lock: where a write's records go, the owning
+        transaction's group or the WAL (None: not logged)."""
+        return self.txn_log if self.write_txn is not None else self.wal
 
     def _normalize(self, data) -> Dict[str, np.ndarray]:
         """`data` in each column's storage dtype; strings of a VARCHAR
@@ -509,21 +568,19 @@ class Table:
             return TableSnapshot(self.column_order, seglists, dels)
 
     def truncate(self) -> None:
-        """DELETE without WHERE: drop all rows IN PLACE, preserving the
-        table object, its indexes, and dependent views (DuckDB delete-all
-        semantics via src/storage/data_table.cpp — the round-4 drop-and-
-        recreate path silently lost indexes, so UNIQUE stopped being
-        enforced)."""
+        """DELETE without WHERE outside a transaction: drop all rows IN
+        PLACE, preserving the table object, its indexes, and dependent
+        views (DuckDB delete-all semantics via src/storage/data_table.cpp —
+        the round-4 drop-and-recreate path silently lost indexes, so UNIQUE
+        stopped being enforced)."""
         with self._append_lock:
+            self._check_writer(None)
             if self.wal is not None:
                 self.wal.log_truncate(self.name)
             for c in self.column_order:
                 col = self.columns[c]
                 for s in col.segments:
-                    self.bm.add_to_data_size(-s.footprint_bytes())
-                    if col.seg_catalog is not None:
-                        col.seg_catalog.remove_column_segment(s)
-                    s.page_out()
+                    col.release(s)
                 col.segments = []
                 col._staging = []
                 col._staged_rows = 0
@@ -533,39 +590,52 @@ class Table:
                 idx.invalidate()
 
     # ---------------- MVCC write ownership ----------------
-    def begin_write_txn(self, token: int) -> None:
+    def begin_write_txn(self, token: int, log, created: bool = False) -> bool:
         """First write by a transaction: pin the committed watermark and
-        snapshot the delete masks (copy-on-write for readers)."""
+        snapshot the delete masks (copy-on-write for readers); the
+        transaction's records go to `log` from now on. A table the
+        transaction `created` has no committed rows. False when the
+        transaction owns the table already."""
         with self._append_lock:
-            if self.write_txn is not None and self.write_txn != token:
-                raise TransactionConflict(
-                    f"table {self.name!r} is being written by another "
-                    "transaction")
+            self._check_writer(token)
             if self.write_txn == token:
-                return
+                return False
             self.flush_locked()
             self.write_txn = token
-            self.committed_rows = self.row_count()
-            self.committed_deletes = {
+            self.txn_log = log
+            self.committed_rows = 0 if created else self.row_count()
+            self.committed_deletes = {} if created else {
                 i: m.copy() for i, m in self._deletes.items()}
             self.no_unseal = True
+            return True
 
     def end_write_txn(self, token: int) -> None:
+        """COMMIT: the owner's rows and deletes are everyone's."""
+        with self._append_lock:
+            if self.write_txn == token:
+                self._end_write_txn_locked()
+
+    def rollback_write_txn(self, token: int) -> None:
+        """ROLLBACK: back to the committed rows and delete masks. The
+        transaction's rows start on a segment boundary (`begin_write_txn`
+        flushes, `no_unseal` keeps the committed segments sealed, and no
+        one else writes), so whole segments go."""
         with self._append_lock:
             if self.write_txn != token:
                 return
-            self.write_txn = None
-            self.committed_rows = None
-            self.committed_deletes = None
-            self.no_unseal = False
+            self.flush_locked()
+            for c in self.column_order:
+                self.columns[c].truncate_rows(self.committed_rows)
+            self._deletes = self.committed_deletes
+            self._has_deletes = bool(self._deletes)
+            self._end_write_txn_locked()
 
-    def snapshot_for(self, token: Optional[int]):
-        """(visible_row_limit, delete_masks) for a reader: live state for
-        the owning writer / idle tables; the committed snapshot for
-        everyone else while a write txn is in flight."""
-        if self.write_txn is None or self.write_txn == token:
-            return None, None
-        return self.committed_rows, self.committed_deletes
+    def _end_write_txn_locked(self) -> None:
+        self.write_txn = None
+        self.txn_log = None
+        self.committed_rows = None
+        self.committed_deletes = None
+        self.no_unseal = False
 
     def flush_locked(self):
         for c in self.column_order:
@@ -574,7 +644,8 @@ class Table:
     def mark_deleted(self, seg_idx: int, rows: np.ndarray, _log=True):
         self.mark_deleted_many([(seg_idx, rows)], _log=_log)
 
-    def mark_deleted_many(self, updates, _log=True):
+    def mark_deleted_many(self, updates, _log=True,
+                          token: Optional[int] = None):
         """Apply a DELETE statement's per-segment row sets ATOMICALLY:
         one lock acquisition publishes every affected segment's new mask,
         so a reader snapshot sees all of the statement or none of it.
@@ -584,10 +655,12 @@ class Table:
         TableSnapshot keep a stable pinned version (the reference's
         chunk_info version-array discipline, reduced to delete masks)."""
         with self._append_lock:
+            self._check_writer(token)
             self.flush_locked()
             masks = self._masks_with(updates)
-            if _log and self.wal is not None:
-                self._log_deletes(self.wal, updates)
+            log = self._log() if _log else None
+            if log is not None:
+                self._log_deletes(log, updates)
             self._deletes = masks
             self._has_deletes = True
 

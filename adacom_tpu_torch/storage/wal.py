@@ -12,8 +12,11 @@ disk (the database is a directory):
 
 A record is ``<u64 length><npz payload>`` where the npz holds a JSON header
 (operation + names) plus the column arrays. Replay stops cleanly at a torn
-tail record (crash mid-write). A transaction's records reach the file
-together at COMMIT (fsync), so a ROLLBACK never needs compensation records.
+tail record (crash mid-write). Each open transaction collects its records
+in a `RecordGroup` of its own (catalog/catalog.py `Transaction`), which
+reaches the file in one write at COMMIT (fsync) and is dropped at
+ROLLBACK, so a ROLLBACK never needs compensation records and no other
+connection's records wait for, or vanish with, another's transaction.
 Outside a transaction a statement's records are written while the lock of
 what they change is held (the table's append lock, the catalog's lock), so
 the log's order is the order in which the changes took place; a statement
@@ -62,6 +65,10 @@ class RecordLog:
 
     def _emit(self, header: dict, arrays: Optional[Dict[str, np.ndarray]] = None):
         self._write([self._encode(header, arrays or {})])
+
+    def write_group(self, group: "RecordGroup"):
+        """`group`'s records, which replay together."""
+        self._write(group.records)
 
     def log_create_table(self, name: str, columns: List[tuple]):
         # columns: [(name, type_name, precision, scale), ...]
@@ -112,7 +119,8 @@ class RecordLog:
 
 
 class RecordGroup(RecordLog):
-    """Records collected for one `WriteAheadLog.write_group` call."""
+    """Records collected for one `WriteAheadLog.write_group` call: one
+    statement's, or one transaction's until its COMMIT."""
 
     def __init__(self):
         self.records: List[bytes] = []
@@ -126,47 +134,23 @@ class WriteAheadLog(RecordLog):
         self.path = path
         self._lock = threading.RLock()
         self._file = open(path, "ab")
-        self._txn_buffer: Optional[List[bytes]] = None
-
-    @classmethod
-    def _group(cls, recs: List[bytes]) -> bytes:
-        """The bytes of records that replay together: a marker first where
-        there is more than one."""
-        if len(recs) > 1:
-            recs = [cls._encode({"op": "txn", "n": len(recs)}, {})] + recs
-        return b"".join(recs)
 
     def _write(self, recs: List[bytes]):
-        """Records that replay together: into the open transaction, or to
-        the file in one write."""
+        """Records that replay together, to the file in one write: a
+        marker first where there is more than one."""
+        if len(recs) > 1:
+            recs = [self._encode({"op": "txn", "n": len(recs)}, {})] + recs
         with self._lock:
-            if self._txn_buffer is not None:
-                self._txn_buffer.extend(recs)
-                return
-            self._file.write(self._group(recs))
+            self._file.write(b"".join(recs))
             self._file.flush()
 
-    def write_group(self, group: RecordGroup):
-        self._write(group.records)
-
-    # ------------------------------------------------------------------
-    # transaction buffering (records durable only at COMMIT)
-    # ------------------------------------------------------------------
-    def begin(self):
+    def commit(self, group: RecordGroup):
+        """A transaction's records at its COMMIT: one write, then fsync."""
+        if not group.records:
+            return
         with self._lock:
-            self._txn_buffer = []
-
-    def commit(self):
-        with self._lock:
-            buf, self._txn_buffer = self._txn_buffer, None
-            if buf:
-                self._file.write(self._group(buf))
-                self._file.flush()
-                os.fsync(self._file.fileno())
-
-    def abort(self):
-        with self._lock:
-            self._txn_buffer = None
+            self.write_group(group)
+            os.fsync(self._file.fileno())
 
     # ------------------------------------------------------------------
     def size(self) -> int:

@@ -171,7 +171,20 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    d. a correlated NOT IN over 1M outer rows with NULLs on both sides
       equals sqlite.
 
-Each main path (4, 5, 6, 6b, 9, 10b-d, 11, 12b, 13, 14a, 14b-d) runs with the launch counts
+15. committed writes under concurrency (adacom_tpu_torch/tools/
+   txn_stress.py at its defaults), after phase 14: a durable database on
+   the card checkpointing itself every 32 MiB of WAL; four threads append
+   10M rows into w(id BIGINT, v INTEGER) through autocommit appenders in
+   batches of 100,000, one runs 50 UPDATEs over a 1M-row u, one runs 20
+   transactions on x (100,000 rows appended and a tenth of x deleted each,
+   COMMIT and ROLLBACK in turn) while another connection's autocommit
+   INSERT into x must raise, one runs CHECKPOINT and counts the refusals;
+   then `crash(db)` and a reopen: each table's count(*) and sum(v) equal a
+   numpy model of the acknowledged operations, at least one automatic
+   checkpoint ran while the writers did, and after compaction count(*),
+   sum(v) over w launches B1.
+
+Each main path (4, 5, 6, 6b, 9, 10b-d, 11, 12b, 13, 14a, 14b-d, 15) runs with the launch counts
 set to 0 just before it and read just after. The last two lines are the
 kernels' JSON record and the result line. `python3 chip_smoke.py
 --tpch-oracle SF`, `--clickbench-oracle SCALE` and `--fuzz-oracle SEED`
@@ -3148,6 +3161,38 @@ def queue_c_path(platform="cuda"):
     not_in_step(platform)
 
 
+def txn_path(platform="cuda"):
+    """Phase 15: txn_stress at its defaults in a temporary directory,
+    crashed with this script's `crash`; one `phase 15` line."""
+    import shutil
+    import tempfile
+
+    from adacom_tpu_torch.tools import txn_stress
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="adacom_txn_")
+    try:
+        r = txn_stress.run(os.path.join(root, "db"), crash,
+                           platform=platform)
+    except RuntimeError as e:
+        raise SmokeFailure(f"phase 15: {e}") from e
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(r["auto_checkpoints"] >= 1,
+          f"phase 15: no automatic checkpoint ran: {r}")
+    check(r["conflicts"] >= 1, f"phase 15: no conflict was raised: {r}")
+    check(platform != "cuda" or r["b1_launches"] >= 1,
+          f"phase 15: the compacted count(*), sum(v) over w skipped B1: {r}")
+    phase("phase 15", t0, f"rows {r['rows']} == the model before the crash "
+          f"and after the reopen (sums {r['sums']}); checkpoints: "
+          f"{r['auto_checkpoints']} automatic, {r['checkpoints']} explicit, "
+          f"{r['refused']} explicit refused; {r['conflicts']} conflicts "
+          f"raised; WAL {r['wal_bytes']} B at the crash; reopen "
+          f"{r['reopen_s']:.3f} s; B1 launches +{r['b1_launches']} "
+          f"(fused scan runs {r['scan_agg']}); threads {r['threads_s']:.2f} "
+          f"s; phase {r['seconds']:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3397,6 +3442,13 @@ def main() -> int:
         phase("queue C", t0, f"launches on this path: {_counts_line()}")
         check(grouped_scan.MULTI_LAUNCHES > 0,
               "phase 14 launched no B3")
+
+        # ---- 15. concurrent writers, transactions and checkpoints --------
+        t0 = time.perf_counter()
+        _zero_counts()
+        txn_path()
+        phase("txn", t0, f"launches on this path: {_counts_line()}")
+        check(fused_scan.KERNEL_LAUNCHES > 0, "phase 15 launched no B1")
     finally:
         stop(tpch_oracle_proc)
         stop(cb_oracle)
