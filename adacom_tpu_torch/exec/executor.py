@@ -53,6 +53,18 @@ from adacom_tpu_torch.exec.join import Join, _hash_join_pairs, _row_keys
 from adacom_tpu_torch.exec.mat import ExecError, Mat, _FallbackToDevice
 
 
+def dense_agg_on_host(rows: int, domain: int, device_type: str, mesh,
+                      config) -> bool:
+    """The card's gate for a grouped aggregate over a dense domain of
+    `domain` slots that B2/B3 decline: True where it runs on the host
+    aggregate (a CUDA database without a mesh, a domain wider than the
+    fused tiers take, a table of fewer than config.device_agg_min_rows
+    rows), False where the generic device path takes it."""
+    return (device_type == "cuda" and mesh is None and
+            domain > grouped_scan.MAX_MULTI_GROUPS and
+            rows < config.device_agg_min_rows)
+
+
 # ======================================================================
 # executor
 # ======================================================================
@@ -226,14 +238,16 @@ class Executor(DeviceScan, Join):
         col._zonemap_cache = (key, mins, maxs)
         return mins, maxs
 
-    def _materialize_scan(self, get: b.LogicalGet, lits) -> Mat:
+    def _materialize_scan(self, get: b.LogicalGet, lits,
+                          declined: bool = False) -> Mat:
         """Host tier for selective lookups and, with host_materialize set,
         every materialization (the output is host-resident either way);
         otherwise the device scan, which also takes a host scan whose
         filter leaves numpy. Scans the device path declines stay on the
-        host."""
+        host, as do those of a plan the caller found declined (a UBIGINT
+        value in an expression over the scan)."""
         limit = self.config.host_scan_segment_limit
-        declined = declines(get)
+        declined = declined or declines(get)
         on_host = self.config.host_materialize or declined
         if on_host or (limit and get.filters):
             snap = self._pin_snapshot(get.table)
@@ -711,9 +725,11 @@ class Executor(DeviceScan, Join):
         dense domain: B2, then B3); the host aggregate over a host scan for
         non-dense domains, DISTINCT and holistic aggregates; the generic
         device path for the rest. On a CUDA database without a mesh a dense
-        domain wider than the fused tiers take runs on the host below
-        device_agg_min_rows rows (the JAX package's TPU gate), and plans
-        over UBIGINT run on the host (no exact device dtype)."""
+        domain wider than the fused tiers take runs on the host aggregate
+        below device_agg_min_rows rows (dense_agg_on_host; its default,
+        524,288, is where the generic path stops losing to the host
+        aggregate on an NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md), and
+        plans over UBIGINT run on the host (no exact device dtype)."""
         specs, finishers = self._agg_specs(node)
         grouped = bool(node.groups)
         dense = self._group_domain(node, get) if grouped else None
@@ -737,13 +753,13 @@ class Executor(DeviceScan, Join):
             if mat is not None:
                 return mat
         args = [arg for _k, arg, _a, _d in specs if arg is not None]
+        declined = declines(get, [*node.groups, *args])
         if (grouped and dense is None) or distinct or holistic or \
-                declines(get, [*node.groups, *args]) or (
-                    grouped and self.db.device.type == "cuda" and
-                    self.db.mesh is None and
-                    dense[3] > grouped_scan.MAX_MULTI_GROUPS and
-                    get.table.row_count() < self.config.device_agg_min_rows):
-            mat = self._materialize_scan(get, lits)
+                declined or (
+                    grouped and dense_agg_on_host(
+                        get.table.row_count(), dense[3],
+                        self.db.device.type, self.db.mesh, self.config)):
+            mat = self._materialize_scan(get, lits, declined)
             return self._aggregate_host(node, mat, lits)
         return self._aggregate_generic(node, get, lits, specs, finishers,
                                        dense)

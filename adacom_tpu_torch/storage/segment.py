@@ -363,10 +363,13 @@ class ColumnSegment:
 
         Packed: (("packed", (widths, n_lanes, dtype)), words of the
         non-constant planes). Generic codec: (Encoded.meta,
-        Encoded.arrays). Plain: (("plain", dtype, count), (values,))."""
-        self._ensure_resident()
+        Encoded.arrays). Plain: (("plain", dtype, count), (values,)).
+        Residency is ensured under the lock that reads it: a segment
+        released from its column (Table.release) pages out, and a scan of a
+        snapshot pinned before that re-uploads it."""
         self.add_read_access()
         with self._lock:
+            self._ensure_resident()
             if self._state == PACKED:
                 if self._encx is not None:
                     return self._encx.meta, self._encx.arrays
@@ -378,15 +381,17 @@ class ColumnSegment:
 
     def packed(self) -> Optional[segcodec.PackedData]:
         """The resident PackedData (None unless compacted)."""
-        self._ensure_resident()
-        return self._packed
+        with self._lock:
+            self._ensure_resident()
+            return self._packed
 
     def validity_arrays(self):
         """Packed validity words for fused kernels; None when all valid."""
         if self._validity_np is None:
             return None
-        self._ensure_resident()
-        return (self._validity_dev,)
+        with self._lock:
+            self._ensure_resident()
+            return (self._validity_dev,)
 
     def host_plain(self) -> np.ndarray:
         """Host copy in compute dtype — the latency tier for selective point
@@ -400,9 +405,9 @@ class ColumnSegment:
 
     def decoded(self) -> torch.Tensor:
         """Whole-segment decode to the compute dtype (count rows)."""
-        self._ensure_resident()
         self.add_read_access()
         with self._lock:
+            self._ensure_resident()
             if self._state == PACKED:
                 if self._encx is not None:
                     return codecs.decode_full(self._encx, self.compute_dtype)
@@ -411,10 +416,10 @@ class ColumnSegment:
 
     def fetch_rows(self, idx: np.ndarray) -> np.ndarray:
         """Random row access (reference FetchRow), in the compute dtype."""
-        self._ensure_resident()
         self.add_read_access()
         it = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
         with self._lock:
+            self._ensure_resident()
             if self._state == PLAIN:
                 out = self._plain[it]
             elif self._encx is not None:

@@ -1,8 +1,8 @@
 """Tools of the port (``python3 -m adacom_tpu_torch.tools.<name>``): the
 measurement tools (ClickBench and TPC-H runners, the decode-scan
 roofline, the [succinct] recorder, the grouped, string, adaptive and
-streamed-join benches), the two differential fuzzers and the TPC-H
-verifier. None writes a file unless it is given a path."""
+streamed-join benches, the routing sweep), the two differential fuzzers
+and the TPC-H verifier. None writes a file unless it is given a path."""
 
 import os
 

@@ -9,12 +9,16 @@ took: the generic device path's runs, the B1/B2/B3 launches and the
 database's event counters.
 
     python3 -m adacom_tpu_torch.tools.fuzz_differential [N_QUERIES] [SEED] \\
-        [--platform cuda|cpu] [--route default|device|both] [--nulls FRACTION]
+        [--platform cuda|cpu] [--route default|device|host|both] \\
+        [--nulls FRACTION]
 
 `--route device` sets `DEVICE_ROUTE`: every aggregate and scan the device
-tiers accept runs on them, where the default config keeps a 20,000-row
-table on the host; `--route both` runs the two configs on one sqlite
-oracle. `--nulls FRACTION` (default 0, the reference's stream) makes that
+tiers accept runs on them. `--route host` sets `HOST_ROUTE`: the host
+aggregate for every dense GROUP BY the fused tiers decline, host
+materialization and the host tier for every filtered scan. `--route
+both` runs the host and device configs on one sqlite oracle, so neither
+route depends on where the defaults send a 20,000-row table. `--nulls
+FRACTION` (default 0, the reference's stream) makes that
 fraction of each column's values NULL, in both engines, with masks drawn
 from a generator of their own (the values and the SQL stay the seed's),
 and spells every ORDER BY item NULLS FIRST, as sqlite sorts them. Exits 1
@@ -37,6 +41,10 @@ SEGMENT_ROWS = 2048
 # the config that sends a small table through the device tiers
 DEVICE_ROUTE = {"device_agg_min_rows": 0, "host_materialize": False,
                 "host_scan_segment_limit": 0}
+# the config that keeps what the routing knobs decide on the host
+HOST_ROUTE = {"device_agg_min_rows": 1 << 62, "host_materialize": True,
+              "host_scan_segment_limit": 1_000_000}
+ROUTES = {"default": None, "device": DEVICE_ROUTE, "host": HOST_ROUTE}
 MAX_MISMATCHES = 5
 # the NULL masks' generator: seeded from the seed and this tag, apart from
 # the values' generator
@@ -293,17 +301,15 @@ def main(argv=None) -> int:
     ap.add_argument("n_queries", nargs="?", type=int, default=300)
     ap.add_argument("seed", nargs="?", type=int, default=0)
     ap.add_argument("--platform", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--route", choices=("default", "device", "both"),
-                    default="default")
+    ap.add_argument("--route", choices=(*ROUTES, "both"), default="default")
     ap.add_argument("--nulls", type=float, default=0.0, metavar="FRACTION")
     args = ap.parse_args(argv)
-    configs = {"default": None, "device": DEVICE_ROUTE}
-    names = list(configs) if args.route == "both" else [args.route]
+    names = ["host", "device"] if args.route == "both" else [args.route]
     oracle = SqliteOracle(stream(0, args.seed)[0],
                           make_nulls(args.seed, N_ROWS, args.nulls))
     bad = 0
     for name in names:
-        res = run(args.n_queries, args.seed, args.platform, configs[name],
+        res = run(args.n_queries, args.seed, args.platform, ROUTES[name],
                   oracle, nulls=args.nulls)
         bad += len(res["divergences"])
         print(f"{args.n_queries} queries ({name} route, nulls "

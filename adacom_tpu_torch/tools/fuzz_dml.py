@@ -10,7 +10,7 @@ Every DELETE/UPDATE ... WHERE evaluates on the device scan unless the
 plan is declined, so on the card this is a random check of that route.
 
     python3 -m adacom_tpu_torch.tools.fuzz_dml [N_OPS] [SEED] [durable] \\
-        [--platform cuda|cpu] [--route default|device]
+        [--platform cuda|cpu] [--route default|device|host]
 
 A durable run uses a temporary directory, removed at the end. Exits 1 on a
 mismatch."""
@@ -27,7 +27,7 @@ import numpy as np
 
 from adacom_tpu_torch.tools import launch_counts
 from adacom_tpu_torch.tools.fuzz_differential import (
-    DEVICE_ROUTE, db_config, routes)
+    ROUTES, db_config, routes)
 
 SEGMENT_ROWS = 1024
 
@@ -146,11 +146,10 @@ def main(argv=None) -> int:
     ap.add_argument("seed", nargs="?", type=int, default=0)
     ap.add_argument("durable", nargs="?", choices=("durable",), default=None)
     ap.add_argument("--platform", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--route", choices=("default", "device"),
-                    default="default")
+    ap.add_argument("--route", choices=tuple(ROUTES), default="default")
     args = ap.parse_args(argv)
     res = run(args.n_ops, args.seed, args.durable is not None, args.platform,
-              DEVICE_ROUTE if args.route == "device" else None)
+              ROUTES[args.route])
     if res["mismatch"]:
         print(res["mismatch"])
         return 1

@@ -70,6 +70,30 @@ def _rows_equal(got, exp):
     return True
 
 
+def load_sqlite(data) -> sqlite3.Connection:
+    """An in-memory sqlite3 database holding the TPC-H tables `data`
+    (tpch.generate's) with SQLITE_INDEXES."""
+    from adacom_tpu_torch.bench import tpch
+
+    lite = sqlite3.connect(":memory:")
+    tpch.load_into_sqlite(lite, data)
+    for spec in SQLITE_INDEXES:
+        lite.execute(f"CREATE INDEX {spec}")
+    return lite
+
+
+def sqlite_answers(sf: float) -> dict:
+    """{qid: sqlite's rows, _norm'ed} of the 22 queries at scale `sf`."""
+    from adacom_tpu_torch.bench import tpch
+
+    lite = load_sqlite(tpch.generate(sf=sf))
+    try:
+        return {qid: _norm(lite.execute(tpch.oracle_sql(qid)).fetchall())
+                for qid in sorted(tpch.QUERIES)}
+    finally:
+        lite.close()
+
+
 def run(sf: float = 1.0, platform: str = "cuda", out: Optional[str] = None,
         log=sys.stderr) -> dict:
     """Load TPC-H at scale factor `sf` into a database on `platform`
@@ -83,16 +107,14 @@ def run(sf: float = 1.0, platform: str = "cuda", out: Optional[str] = None,
     t0 = time.time()
     data = tpch.generate(sf=sf)
     db = att.Database(platform=platform)
-    lite = sqlite3.connect(":memory:")
+    lite = None
     try:
         con = db.connect()
         tpch.load_into_engine(con, data)
         db.catalog.get_column_segment_catalog().compact_all_segments()
         print(f"engine loaded +{time.time() - t0:.0f}s", file=log, flush=True)
-        tpch.load_into_sqlite(lite, data)
+        lite = load_sqlite(data)
         del data
-        for spec in SQLITE_INDEXES:
-            lite.execute(f"CREATE INDEX {spec}")
         print(f"oracle loaded +{time.time() - t0:.0f}s", file=log, flush=True)
         results = {}
         for qid in sorted(tpch.QUERIES):
@@ -119,7 +141,8 @@ def run(sf: float = 1.0, platform: str = "cuda", out: Optional[str] = None,
             print(f"Q{qid:02d} {'OK ' if ok else 'FAIL'} rows={len(got)} "
                   f"engine={te:.2f}s oracle={ts:.2f}s", file=log, flush=True)
     finally:
-        lite.close()
+        if lite is not None:
+            lite.close()
         db.close()
     n_ok = sum(1 for r in results.values() if r["ok"])
     res = {"sf": sf, "platform": platform, "passed": n_ok,

@@ -43,7 +43,8 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    as dist_stats and the launch counters show it;
 7. timing: each kernel alone, its wrapper and its plain version at its
    main path's shape (CUDA events), after the launch counts were read,
-   with its bound (the bytes it must move at 3.35 TB/s). No single PyTorch
+   with its bound (the bytes it must move at 3.35 TB/s) and its share of
+   the read bandwidth phase 10a measured. No single PyTorch
    call unpacks the vertical-lane layout, so `library_ms` is null;
 8. the generic device path (PyTorch tensor ops, no kernel of its own):
    a. every codec (constant, rle, delta, dictionary, alp) decodes on the
@@ -69,8 +70,9 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    card, and the same data in sqlite3 (with indexes) in a subprocess
    started at the top of the phase, which computes every oracle answer
    once while the engine loads and queries. All 22 queries on plain
-   segments, after compaction, and compacted with host_materialize=false
-   (the device scan feeds the joins), each equal to sqlite's; for the two
+   segments, compacted with host_materialize=true (the host copies feed
+   the joins) and with host_materialize=false (the device scan feeds
+   them), each equal to sqlite's; for the two
    compacted runs each query prints its cold time, the median of 3 hot
    runs, the device time and kernels of one hot run and its routes (the
    streamed join, streamed aggregate and index join counters, the generic
@@ -141,12 +143,12 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    at cut sizes (PERF.md section 4):
    a. Database() on the card in a fresh process starts the warm-up thread;
       ensure_transfer_warm() returns with the kernel library loaded;
-   b. fuzz_differential, 300 random SELECTs (seed 0) at the default config
+   b. fuzz_differential, 300 random SELECTs (seed 0) on the host route
       and on the device route, each against sqlite (answers computed by a
       subprocess started before phase 10), on the NULL-free table and on
       one with 10% of each column NULL (--nulls 0.1): 0 divergences, the
       device route through the generic path;
-   c. fuzz_dml, 200 random DML ops (seed 0) in memory at both configs and
+   c. fuzz_dml, 200 random DML ops (seed 0) in memory on both routes and
       durable with a crash and a reopen: the final state equals sqlite's;
    d. verify_sf1 and tpch_sf1 at TPC-H SF 0.1: 22/22 equal to sqlite, Q1
       and Q6 launch B3;
@@ -184,7 +186,17 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    checkpoint ran while the writers did, and after compaction count(*),
    sum(v) over w launches B1.
 
-Each main path (4, 5, 6, 6b, 9, 10b-d, 11, 12b, 13, 14a, 14b-d, 15) runs with the launch counts
+16. the routing defaults (adacom_tpu_torch/tools/route_sweep.py), after
+   phase 15, at cut sizes (the full sweep is its own command): the dense
+   GROUP BY over 262,144, 1M and 8M rows (device_agg_min_rows, 524,288,
+   lies between the first two), domains of 1,024 and 100,000 keys, on the
+   host aggregate and the generic device path; t1 (100M UINTEGER rows)
+   scanned over 1, 8 and 64 whole segments with host_materialize=false on
+   the host tier and the device scan, and under the defaults; every answer
+   equal to numpy, each route the one forced, one line per point with the
+   route each default takes.
+
+Each main path (4, 5, 6, 6b, 9, 10b-d, 11, 12b, 13, 14a, 14b-d, 15, 16) runs with the launch counts
 set to 0 just before it and read just after. The last two lines are the
 kernels' JSON record and the result line. `python3 chip_smoke.py
 --tpch-oracle SF`, `--clickbench-oracle SCALE` and `--fuzz-oracle SEED`
@@ -1001,6 +1013,13 @@ def _t5_db(g, v, g_ok, v_ok, platform, mesh=None):
     return db, con
 
 
+def _default_routing(con):
+    """SET the routing knobs back to the DBConfig defaults."""
+    from adacom_tpu_torch.tools import route_sweep
+
+    route_sweep.set_config(con, route_sweep.defaults())
+
+
 def _t5_run(db, con, what, want, hot_runs):
     """T5_SQL cold and hot on one route, against numpy; returns the cold
     run's route (dist_stats' increments and the launches) and times."""
@@ -1027,11 +1046,11 @@ def t5_path(t3_con, t3_want, hot_runs=3, n_rows=T5_ROWS, prefix=T5_PREFIX,
     """Phase 6b: SQL NULL semantics of GROUP BY at 100M rows. t5(g, v):
     12 keys plus 5% NULL keys, one key whose v is all NULL, 10% NULL v
     elsewhere; T5_SQL on the generic device path (the default config at
-    100M rows), the host aggregate (default config, an 8M-row prefix: below
-    device_agg_min_rows with a 35-slot domain) and 4 virtual shards of the
-    card (the same prefix), each against numpy; the NULL-free twin on t3
-    still launches B2 and equals numpy (t3_want: phase 6's per-group
-    counts and sums)."""
+    100M rows), the host aggregate over the host copies (an 8M-row prefix,
+    device_agg_min_rows above it, host_materialize=true) and 4 virtual
+    shards of the card (the same prefix), each against numpy; the
+    NULL-free twin on t3 still launches B2 and equals numpy (t3_want:
+    phase 6's per-group counts and sums)."""
     from adacom_tpu_torch.parallel import mesh as pmesh
 
     t0 = time.perf_counter()
@@ -1075,6 +1094,9 @@ def t5_path(t3_con, t3_want, hot_runs=3, n_rows=T5_ROWS, prefix=T5_PREFIX,
                        ("4 virtual shards",
                         pmesh.make_virtual_mesh(4, platform))):
         db, con = _t5_db(pg, pv, pgo, pvo, platform, mesh)
+        if mesh is None:  # the host aggregate over the host copies
+            con.query(f"SET device_agg_min_rows = {prefix + 1}")
+            con.query("SET host_materialize = true")
         try:
             route, cold, hot = _t5_run(db, con, f"t5 {name}", want, 1)
         finally:
@@ -1506,17 +1528,18 @@ def t4_path(hot_runs, n_rows=T4_ROWS, platform="cuda"):
 
     device_ms = generic_query(con, "t4 GROUP BY r (1000 groups)", group_sql,
                               hot_runs, verify_grouped, "t4")
-    # the same query on the host aggregate (device_agg_min_rows above the
-    # row count)
+    # the same query on the host aggregate over the host copies
+    # (device_agg_min_rows above the row count)
     t = time.perf_counter()
     con.query(f"SET device_agg_min_rows={n_rows + 1}")
+    con.query("SET host_materialize=true")
     host_t = []
     for _ in range(3):
         t1 = time.perf_counter()
         host = con.query(group_sql).fetchall()
         host_t.append(time.perf_counter() - t1)
         verify_grouped(host)
-    con.query("SET device_agg_min_rows=32000000")
+    _default_routing(con)
     phase("generic t4 GROUP BY r on the host aggregate", t,
           f"== numpy; median of 3 {statistics.median(host_t) * 1e3:.3f} ms "
           f"against {device_ms:.3f} ms on the generic device path")
@@ -1536,6 +1559,7 @@ def t4_path(hot_runs, n_rows=T4_ROWS, platform="cuda"):
     scan_sql = f"SELECT k, f FROM t4 WHERE r = 7 AND d = {v}"
     want_rows = list(zip(np.concatenate(oracle.rows[0]).tolist(),
                          np.concatenate(oracle.rows[1]).tolist()))
+    con.query("SET host_materialize=true")
     host_rows = con.query(scan_sql).fetchall()
     check([(int(a), float(b)) for a, b in host_rows] == want_rows,
           "host-tier scan != numpy")
@@ -1547,7 +1571,7 @@ def t4_path(hot_runs, n_rows=T4_ROWS, platform="cuda"):
     con.query("SET host_materialize=false")
     generic_query(con, "t4 device scan", scan_sql, hot_runs, verify_scan,
                   "t4")
-    con.query("SET host_materialize=true")
+    _default_routing(con)
 
     from adacom_tpu_torch.exec import device_scan
 
@@ -1783,8 +1807,8 @@ def relational_path(hot_runs, sf=TPCH9_SF, platform="cuda", oracle=None):
         phase("relational compact", t0, "PRAGMA compact_all_segments")
         records = {}
         for mode in ("compacted", "device scan"):
-            if mode == "device scan":
-                con.query("SET host_materialize=false")
+            # host materialization, then the device scan feeding the joins
+            con.query(f"SET host_materialize={mode == 'compacted'}")
             t_mode = time.perf_counter()
             for qid in sorted(tpch.QUERIES):
                 sql = tpch.QUERIES[qid]
@@ -2763,11 +2787,11 @@ def warmup_step(platform="cuda"):
 
 
 def fuzz_step(oracle_proc, platform="cuda"):
-    """13b and 13c: the differential fuzzer at the default config and on
-    the device route against sqlite (answers from `oracle_proc`), on the
-    NULL-free table and on one with FUZZ_NULLS of each column NULL, and the
-    DML fuzzer in memory at both configs and durable with a crash and a
-    reopen."""
+    """13b and 13c: the differential fuzzer on the host and the device
+    routes against sqlite (answers from `oracle_proc`), on the NULL-free
+    table and on one with FUZZ_NULLS of each column NULL, and the DML
+    fuzzer in memory on both routes and durable at the default config
+    with a crash and a reopen."""
     from adacom_tpu_torch.tools import fuzz_differential as fd
     from adacom_tpu_torch.tools import fuzz_dml
 
@@ -2778,7 +2802,7 @@ def fuzz_step(oracle_proc, platform="cuda"):
     waited = time.perf_counter() - t0
     res = {}
     for table, nulls in (("plain", 0.0), ("nulls", FUZZ_NULLS)):
-        for name, cfg in (("default", None),
+        for name, cfg in (("host route", fd.HOST_ROUTE),
                           ("device route", fd.DEVICE_ROUTE)):
             t = time.perf_counter()
             with open(os.devnull, "w") as quiet:
@@ -2795,11 +2819,15 @@ def fuzz_step(oracle_proc, platform="cuda"):
                   f"{time.perf_counter() - t:.2f} s", flush=True)
         check(res["device route", table]["routes"]["device_scan"] > 0,
               "the device route ran no device scan")
-    phase("tools fuzz_differential", t0, f"both configs agree with sqlite "
+        check(res["device route", table]["routes"]["device_scan"] >
+              res["host route", table]["routes"]["device_scan"],
+              "the host route ran as many device scans as the device route")
+    phase("tools fuzz_differential", t0, f"both routes agree with sqlite "
           f"on both tables "
           f"(waited {waited:.1f} s for its answers)")
     t0 = time.perf_counter()
-    for name, durable, cfg in (("in memory", False, None),
+    for name, durable, cfg in (("in memory, host route", False,
+                                fd.HOST_ROUTE),
                                ("in memory, device route", False,
                                 fd.DEVICE_ROUTE),
                                ("durable, crash and reopen", True, None)):
@@ -3193,6 +3221,66 @@ def txn_path(platform="cuda"):
           f"s; phase {r['seconds']:.2f} s")
 
 
+# phase 16's points, cut from tools/route_sweep.py's for time (PERF.md §6)
+ROUTE_ROWS = (262_144, 1_000_000, 8_000_000)
+ROUTE_DOMAINS = (1024, 100_000)
+ROUTE_KS = (1, 8, 64)
+ROUTE_HOT = 3
+
+
+def routing_path(platform="cuda", t1_rows=N_ROWS):
+    """Phase 16: tools/route_sweep.py at ROUTE_ROWS x ROUTE_DOMAINS (the
+    dense GROUP BY on the host aggregate and the generic path) and at
+    ROUTE_KS on t1 (the range scan on the host tier and the device scan,
+    and under the defaults), every answer equal to numpy; one line per
+    point with the route each default takes."""
+    from adacom_tpu_torch.config import DBConfig
+    from adacom_tpu_torch.exec.executor import dense_agg_on_host
+    from adacom_tpu_torch.tools import route_sweep as rs
+
+    t0 = time.perf_counter()
+    cfg = DBConfig()
+    want = {"host": ("host_aggregate", "host_tier"),
+            "generic": ("generic_device_path",), "device": ("device_scan",)}
+    with open(os.devnull, "w") as quiet:
+        try:
+            # one sweep per row count: both routes at every point
+            agg = [p for n in ROUTE_ROWS for p in rs.agg_sweep(
+                platform, (n,), ROUTE_DOMAINS, ("all",), ROUTE_HOT, quiet)]
+            seg = rs.segment_sweep(platform, ROUTE_KS, t1_rows, ROUTE_HOT,
+                                   quiet, rs.SEGMENT_ROUTES +
+                                   (("defaults", rs.defaults()),))
+        except AssertionError as e:  # an answer differed from numpy
+            raise SmokeFailure(f"phase 16: {e}") from e
+    for section, points in (("agg", agg), ("segments", seg)):
+        for p in points:
+            for name, rec in p["routes"].items():
+                check(platform != "cuda" or name not in want or
+                      rec["route"] in want[name],
+                      f"phase 16 {section}: route {name} took {rec['route']}")
+            r = p["routes"]
+            if section == "agg":
+                takes = "host aggregate" if dense_agg_on_host(
+                    p["rows"], p["domain"], platform, None, cfg) else \
+                    "generic device path"
+                line = (f"N {p['rows']}, D {p['domain']}: host "
+                        f"{r['host']['hot_ms']:.3f} ms, generic "
+                        f"{r['generic']['hot_ms']:.3f} ms; "
+                        f"device_agg_min_rows {cfg.device_agg_min_rows} "
+                        f"takes the {takes}")
+            else:
+                line = (f"k {p['k']} ({p['rows']} rows): host "
+                        f"{r['host']['hot_ms']:.3f} ms, device "
+                        f"{r['device']['hot_ms']:.3f} ms; host_materialize "
+                        f"{cfg.host_materialize}, host_scan_segment_limit "
+                        f"{cfg.host_scan_segment_limit} take the "
+                        f"{r['defaults']['route']} "
+                        f"({r['defaults']['hot_ms']:.3f} ms)")
+            print(f"[routing {section}] {line}; == numpy", flush=True)
+    phase("routing", t0, f"{len(agg)} GROUP BY points and {len(seg)} range "
+          f"scans, both routes of each == numpy")
+
+
 def main() -> int:
     import torch
 
@@ -3339,7 +3427,9 @@ def main() -> int:
         b3[q] = (ms, wrapper, plain, bound_ms(bb))
         print(f"[timing B3 Q{q}] {len(tp[q]['calls'])} launch(es), "
               f"{nbytes} packed B: kernel {ms:.4f} ms = "
-              f"{nbytes / ms / 1e6:.1f} GB/s; {_bound_line(bb, ms)}; "
+              f"{nbytes / ms / 1e6:.1f} GB/s, "
+              f"{100 * nbytes / ms / 1e6 / read_gbps:.1f}% of the measured "
+              f"read bandwidth; {_bound_line(bb, ms)}; "
               f"wrapper {wrapper:.4f} ms; "
               f"plain version {plain:.3f} ms; hot query "
               f"{tp[q]['hot'] * 1e3:.3f} ms, host time outside the wrapper "
@@ -3361,7 +3451,9 @@ def main() -> int:
     bb = _bound_bytes(t3["calls"], "B2")
     b2_bound = bound_ms(bb)
     phase("timing B2", t0, f"{len(t3['calls'])} launch(es), {nbytes} packed "
-          f"B: kernel {b2_ms:.4f} ms = {nbytes / b2_ms / 1e6:.1f} GB/s; "
+          f"B: kernel {b2_ms:.4f} ms = {nbytes / b2_ms / 1e6:.1f} GB/s, "
+          f"{100 * nbytes / b2_ms / 1e6 / read_gbps:.1f}% of the measured "
+          f"read bandwidth; "
           f"{_bound_line(bb, b2_ms)}; wrapper {b2_wrapper:.4f} ms; plain version {b2_plain_ms:.3f} ms; "
           f"hot query {t3['hot'] * 1e3:.3f} ms")
     # ---- 6b. GROUP BY over NULLs at 100M rows on three routes -----------
@@ -3449,6 +3541,13 @@ def main() -> int:
         txn_path()
         phase("txn", t0, f"launches on this path: {_counts_line()}")
         check(fused_scan.KERNEL_LAUNCHES > 0, "phase 15 launched no B1")
+
+        # ---- 16. the routing defaults: both routes of each knob ----------
+        t0 = time.perf_counter()
+        _zero_counts()
+        routing_path()
+        phase("route", t0, f"launches on this path: {_counts_line()}")
+        check(_launches()[-1] > 0, "phase 16 ran no generic device path")
     finally:
         stop(tpch_oracle_proc)
         stop(cb_oracle)

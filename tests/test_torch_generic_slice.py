@@ -211,7 +211,10 @@ def test_device_scan_matches_reference_and_host_tier(engines):
     sql = (f"SELECT k, f, s, n FROM g WHERE a = 3 AND d = {V} "
            "ORDER BY k")
     jcon, tcon = engines["auto"]
+    tcon.query("SET host_materialize=true")
+    before = device_scan.RUNS
     host = tcon.query(sql).fetchall()
+    assert device_scan.RUNS == before
     try:
         for con in (jcon, tcon):
             con.query("SET host_materialize=false")
@@ -220,8 +223,9 @@ def test_device_scan_matches_reference_and_host_tier(engines):
         assert device_scan.RUNS > before
         ref = jcon.query(sql).fetchall()
     finally:
-        for con in (jcon, tcon):
-            con.query("SET host_materialize=true")
+        jcon.query("SET host_materialize=true")
+        tcon.query(f"SET host_materialize="
+                   f"{adacom_tpu_torch.DBConfig().host_materialize}")
     assert got == ref == host and len(got) > 0
 
 

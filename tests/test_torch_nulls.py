@@ -119,6 +119,8 @@ def _engine(route, rows):
             setattr(cfg, k, v)
     if route == "mesh":
         kw["mesh"] = pmesh.make_virtual_mesh(4, "cpu")
+    if route == "host":  # the host aggregate over the host copies
+        cfg.host_materialize = True
     db = att.Database(config=cfg, platform="cpu", **kw)
     con = db.connect()
     scale = HOST_SCALE if route == "host" else 1

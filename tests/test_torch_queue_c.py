@@ -430,7 +430,9 @@ def _fill_not_in(ex, o_rows, s_rows):
 def test_correlated_not_in_example(route):
     o_rows = [(1, 1), (2, 2), (3, None), (4, 5)]
     s_rows = [(1, 7), (1, None), (2, 3), (4, 9)]
-    db, con = _db(route)
+    # the host route reads the host copies
+    db, con = _db(route, **({"host_materialize": True}
+                            if route == "host" else {}))
     _fill_not_in(con.query, o_rows, s_rows)
     runs = device_scan.RUNS
     assert _rows(con, NOT_IN) == [(2,), (3,), (4,)]
@@ -857,7 +859,8 @@ def test_insert_integer_range_vs_sqlite():
 
 def test_auto_index_under_concurrent_probes_and_appends():
     keys, base_rows, batches = 500, 24_000, 30
-    db, con = _db(auto_index_threshold=16)
+    # the auto-index serves the host tier's equality probes
+    db, con = _db(auto_index_threshold=16, host_materialize=True)
     con.query("CREATE TABLE t(k INTEGER, b INTEGER)")
     app = con.appender("t")
     app.append_columns({"k": (np.arange(base_rows) % keys).astype(np.int32),

@@ -1,7 +1,8 @@
 """The port's fuzzers and device warm-up, on the CPU: the query stream of
 `adacom_tpu_torch.tools.fuzz_differential` equals the reference tool's
-for four seeds, both fuzzers agree with sqlite at the default config and
-on the device route (`DEVICE_ROUTE`), the DML fuzzer also across a crash
+for four seeds, both fuzzers agree with sqlite at the default config, on
+the device route (`DEVICE_ROUTE`) and on the host route (`HOST_ROUTE`),
+the DML fuzzer also across a crash
 and a reopen, no tool runs on a `cuda` platform without a card, and the
 warm-up does nothing on the CPU. Comparisons are exact except where the
 fuzzers' own comparison allows 1e-6 on floats.
@@ -24,7 +25,7 @@ from adacom_tpu_torch.tools import fuzz_dml
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = ("fuzz_differential", "fuzz_dml", "verify_sf1", "tpch_sf1",
          "record_suites", "grouped_agg_bench", "string_bench",
-         "adaptive_overtime", "q18_stream")
+         "adaptive_overtime", "q18_stream", "route_sweep")
 # the smallest run of each tool's command line
 SMALL_ARGS = {
     "fuzz_differential": ["5", "3"], "fuzz_dml": ["5", "3"],
@@ -33,6 +34,8 @@ SMALL_ARGS = {
                       "SuccinctZipfDistribution"],
     "grouped_agg_bench": ["2048"], "string_bench": ["2048"],
     "adaptive_overtime": ["2048", "0.1"], "q18_stream": ["--sf", "0.01"],
+    "route_sweep": ["agg", "--rows", "2048", "--domains", "64", "--hot",
+                    "1"],
 }
 
 
@@ -74,10 +77,9 @@ def oracle7():
     oracle.lite.close()
 
 
-@pytest.mark.parametrize("route", ["default", "device"])
+@pytest.mark.parametrize("route", ["default", "device", "host"])
 def test_fuzz_differential_no_divergence(oracle7, route):
-    res = fd.run(50, 7, "cpu", fd.DEVICE_ROUTE if route == "device"
-                 else None, oracle7)
+    res = fd.run(50, 7, "cpu", fd.ROUTES[route], oracle7)
     assert res["queries"] == 50
     assert res["divergences"] == []
     assert res["routes"]["device_scan"] > 0
@@ -91,11 +93,10 @@ def test_fuzz_differential_no_divergence(oracle7, route):
     assert [res["routes"][k] for k in ("B1", "B2", "B3")] == [0, 0, 0]
 
 
-@pytest.mark.parametrize("route", ["default", "device"])
+@pytest.mark.parametrize("route", ["default", "device", "host"])
 @pytest.mark.parametrize("durable", [False, True])
 def test_fuzz_dml_matches_sqlite(route, durable):
-    res = fuzz_dml.run(80, 1, durable, "cpu",
-                       fd.DEVICE_ROUTE if route == "device" else None)
+    res = fuzz_dml.run(80, 1, durable, "cpu", fd.ROUTES[route])
     assert res["mismatch"] is None
     assert res["durable"] is durable and res["rows"] > 0
     assert res["routes"]["device_scan"] > 0  # DML WHERE on the device scan
@@ -136,7 +137,8 @@ def test_tool_on_cuda_without_a_card_raises(tool, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("tool", ["fuzz_differential", "fuzz_dml",
                                   "record_suites", "grouped_agg_bench",
-                                  "string_bench", "adaptive_overtime"])
+                                  "string_bench", "adaptive_overtime",
+                                  "route_sweep"])
 def test_tool_writes_no_file_without_a_path(tool, tmp_path, monkeypatch):
     """Run from a directory, a tool given no output path leaves it empty
     (the reference tools write their records into the current directory;
