@@ -179,7 +179,9 @@ def filter_eq_u32(vals: np.ndarray, v: int) -> np.ndarray:
 
 def packed_filter_eq_u32(words: np.ndarray, count: int, width: int,
                          min_factor: int, v: int) -> np.ndarray:
-    """Point-lookup scan DIRECTLY over packed host words (no decode pass)."""
+    """Point-lookup scan DIRECTLY over packed host words (no decode pass).
+    Returns the matching row indices in ascending order on both paths (the
+    library walks the words lane by lane, so its hits are sorted here)."""
     lib = _load()
     words = np.ascontiguousarray(words, dtype=np.uint32)
     if lib is None:
@@ -190,7 +192,7 @@ def packed_filter_eq_u32(words: np.ndarray, count: int, width: int,
     idx = np.empty(count, dtype=np.int64)
     m = lib.adacom_packed_filter_eq_u32(words, count, width,
                                         np.uint32(min_factor), np.uint32(v), idx)
-    return idx[:m]
+    return np.sort(idx[:m])
 
 
 # ---------------- grouped aggregation / sort ----------------

@@ -13,11 +13,17 @@ database's event counters.
         [--nulls FRACTION]
 
 `--route device` sets `DEVICE_ROUTE`: every aggregate and scan the device
-tiers accept runs on them. `--route host` sets `HOST_ROUTE`: the host
-aggregate for every dense GROUP BY the fused tiers decline, host
-materialization and the host tier for every filtered scan. `--route
-both` runs the host and device configs on one sqlite oracle, so neither
-route depends on where the defaults send a 20,000-row table. `--nulls
+tiers accept runs on them. `--route host` sets `HOST_ROUTE`: host
+materialization and the host tier for every filtered scan, and the host
+aggregate for every dense GROUP BY wider than the fused tiers' 16 groups
+(a narrower one that B2/B3 decline takes the generic device path on
+every route, as on a card). `--route both` runs the host and device
+configs on one sqlite oracle, so neither route depends on where the
+defaults send a 20,000-row table. On every platform a run routes each
+dense GROUP BY as a card does: on the CPU the gate
+(`executor.dense_agg_on_host`) is asked with the device type "cuda" for
+the length of the run (`card_gate`), so the CPU holds the host aggregate
+that a card's defaults take, and `routes` counts the gate's answers. `--nulls
 FRACTION` (default 0, the reference's stream) makes that
 fraction of each column's values NULL, in both engines, with masks drawn
 from a generator of their own (the values and the SQL stay the seed's),
@@ -27,6 +33,7 @@ on a divergence, printing the SQL."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import sqlite3
 import sys
@@ -177,12 +184,42 @@ def rows_equal(a, b):
     return True
 
 
-def routes(db, before: dict) -> dict:
+def routes(db, before: dict, gate: Optional[dict] = None) -> dict:
     """What ran since `before` (a `launch_counts()` reading): the launches'
-    increments, and the database's event counters (`dist_stats`)."""
+    increments, the database's event counters (`dist_stats`) and, given
+    `card_gate`'s counts, the gate's answers."""
     out = launches_since(before)
     out["dist_stats"] = {k: v for k, v in db.dist_stats.items() if v}
+    out.update(gate or {})
     return out
+
+
+@contextlib.contextmanager
+def card_gate():
+    """Inside the block the dense GROUP BY gate (executor.dense_agg_on_host,
+    asked once for each dense GROUP BY the fused tiers decline) answers as
+    on a CUDA database whatever the database's device, and counts its
+    answers for the domains wider than the fused tiers take (the ones
+    device_agg_min_rows decides): {"host_agg": sent to the host aggregate,
+    "generic_agg": left to the generic device path}. The engine's own CPU
+    routing is back when the block ends."""
+    from adacom_tpu_torch.exec import executor
+    from adacom_tpu_torch.ops import grouped_scan
+
+    real = executor.dense_agg_on_host
+    counts = {"host_agg": 0, "generic_agg": 0}
+
+    def gate(rows, domain, _device_type, mesh, config):
+        on_host = real(rows, domain, "cuda", mesh, config)
+        if domain > grouped_scan.MAX_MULTI_GROUPS:
+            counts["host_agg" if on_host else "generic_agg"] += 1
+        return on_host
+
+    executor.dense_agg_on_host = gate
+    try:
+        yield counts
+    finally:
+        executor.dense_agg_on_host = real
 
 
 def db_config(overrides: Optional[dict], segment_rows: int):
@@ -240,6 +277,29 @@ def oracle_answers(n_queries: int, seed: int, nulls: float = 0.0) -> list:
         oracle.lite.close()
 
 
+def _compare(con, queries, oracle, log):
+    """Run each query and hold it against `oracle` until MAX_MISMATCHES;
+    returns (queries run, divergences)."""
+    bad, mismatches, done = [], 0, 0
+    for i, q in enumerate(queries):
+        done += 1
+        try:
+            got = norm(con.query(q).fetchall())
+        except Exception as e:  # a divergence, reported with its SQL
+            print(f"[{i}] ENGINE ERROR on: {q}\n    {e}", file=log)
+            bad.append({"i": i, "sql": q, "error": repr(e)})
+            continue
+        exp = oracle(i, q)
+        if not rows_equal(got, exp):
+            print(f"[{i}] MISMATCH on: {q}\n  got {got[:3]} ({len(got)})"
+                  f"\n  exp {exp[:3]} ({len(exp)})", file=log)
+            bad.append({"i": i, "sql": q, "got": got[:3], "exp": exp[:3]})
+            mismatches += 1
+            if mismatches >= MAX_MISMATCHES:
+                break
+    return done, bad
+
+
 def run(n_queries: int = 300, seed: int = 0, platform: str = "cuda",
         config: Optional[dict] = None,
         oracle: Optional[Callable[[int, str], list]] = None,
@@ -248,10 +308,11 @@ def run(n_queries: int = 300, seed: int = 0, platform: str = "cuda",
     with the DBConfig fields in `config` set (segments of 2,048 rows, as
     the reference), `nulls` of each column NULL (make_nulls). `oracle(i,
     sql)` gives query i's normalized expected rows (default: sqlite in
-    this process on the same table). Stops after
+    this process on the same table). Each dense GROUP BY is routed as on
+    a card (`card_gate`). Stops after
     5 mismatches, as the reference does. Returns {"queries": queries run,
     "divergences": [{"i", "sql", "error" or "got"/"exp"}], "routes":
-    routes()}."""
+    routes() with the gate's counts}."""
     import adacom_tpu_torch as att
 
     data, queries = stream(n_queries, seed, nulls)
@@ -269,27 +330,11 @@ def run(n_queries: int = 300, seed: int = 0, platform: str = "cuda",
         app.append_columns(data, valid)
         app.close()
         db.catalog.get_column_segment_catalog().compact_all_segments()
-        bad, mismatches, done = [], 0, 0
         before = launch_counts()
-        for i, q in enumerate(queries):
-            done += 1
-            try:
-                got = norm(con.query(q).fetchall())
-            except Exception as e:  # a divergence, reported with its SQL
-                print(f"[{i}] ENGINE ERROR on: {q}\n    {e}", file=log)
-                bad.append({"i": i, "sql": q, "error": repr(e)})
-                continue
-            exp = oracle(i, q)
-            if not rows_equal(got, exp):
-                print(f"[{i}] MISMATCH on: {q}\n  got {got[:3]} ({len(got)})"
-                      f"\n  exp {exp[:3]} ({len(exp)})", file=log)
-                bad.append({"i": i, "sql": q, "got": got[:3],
-                            "exp": exp[:3]})
-                mismatches += 1
-                if mismatches >= MAX_MISMATCHES:
-                    break
+        with card_gate() as gate:
+            done, bad = _compare(con, queries, oracle, log)
         return {"queries": done, "divergences": bad,
-                "routes": routes(db, before)}
+                "routes": routes(db, before, gate)}
     finally:
         if own:
             oracle.lite.close()

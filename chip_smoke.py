@@ -7,7 +7,7 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
 
 1. device: the card's name and power limit, CUDA present;
 2. build: the kernels (csrc/*.cu, one nvcc per source, for sm_90a) and
-   the native host library, from the checkout's sources;
+   the native host library, from the checkout's sources; then phase 17;
 3. kernels == plain versions on the card, every comparison exact:
    - table scan (B1): every width 1..32 x {plain, predicate, min/max,
      validity plane}, ragged lanes and counts, signed minima, empty ranges;
@@ -35,10 +35,10 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
 6. grouped aggregate (B2): 100M rows of t3(g INTEGER, v INTEGER), 12
    groups, a plain and a filtered GROUP BY held against numpy;
    b. SQL NULL semantics of GROUP BY: t3's NULL-free count/sum/avg still
-   launches B2 and equals numpy; t5(g INTEGER, v INTEGER), 100M rows from a seed, 12 keys
+   launches B2 and equals numpy; t5(g INTEGER, v INTEGER), 50M rows from a seed, 12 keys
    plus 5% NULL keys, one key whose v is all NULL and 10% NULL v elsewhere;
    GROUP BY g with count(*), count(v), sum, min, max and avg against numpy
-   on the generic device path (100M rows), the host aggregate and 4
+   on the generic device path (50M rows), the host aggregate and 4
    virtual shards of the card (an 8M-row prefix each), each route printed
    as dist_stats and the launch counters show it;
 7. timing: each kernel alone, its wrapper and its plain version at its
@@ -50,11 +50,11 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    a. every codec (constant, rle, delta, dictionary, alp) decodes on the
       card to the host values bit for bit at 1, 4,097, 65,535 and 65,536
       rows (whole segment, gather, a pool of two);
-   b. t4: 100M rows of (k BIGINT, r INTEGER, d INTEGER, f DOUBLE,
+   b. t4: 50M rows of (k BIGINT, r INTEGER, d INTEGER, f DOUBLE,
       c INTEGER) compacted with compression_codec='auto' (delta, rle,
       dictionary, alp, succinct on every segment); the ungrouped
       aggregate over all five columns, a 1,000-group GROUP BY (also on the
-      host aggregate), a filtered aggregate, a device scan
+      host aggregate, one run), a filtered aggregate, a device scan
       (host_materialize=false) against the host tier, DELETE ... WHERE
       and the aggregate again, all against numpy;
    c. t1 (phase 4's table) after one adaptive policy step: count/sum over
@@ -72,11 +72,11 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    once while the engine loads and queries. All 22 queries on plain
    segments, compacted with host_materialize=true (the host copies feed
    the joins) and with host_materialize=false (the device scan feeds
-   them), each equal to sqlite's; for the two
-   compacted runs each query prints its cold time, the median of 3 hot
-   runs, the device time and kernels of one hot run and its routes (the
-   streamed join, streamed aggregate and index join counters, the generic
-   path's runs, the B1/B2/B3 launches); Q1 and Q6 must launch B3. Then a
+   them), each equal to sqlite's; for the two compacted runs each query
+   prints its cold time, one hot run, the device time and kernels of
+   another hot run and its routes (the streamed join, streamed aggregate
+   and index join counters, the generic path's runs, the B1/B2/B3
+   launches); Q1 and Q6 must launch B3. Then a
    window query over orders, UNION/EXCEPT/INTERSECT, DISTINCT, FROM-less
    SELECTs, (VALUES ...) joined to nation and samples, against sqlite; a
    join and sorts under a memory_limit that makes them spill, against
@@ -95,9 +95,9 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
       checked while its background compaction runs, the thread stopped;
    d. ClickBench's 43 queries (tools/clickbench_run.py) at CB_SCALE, each
       answer equal to sqlite's, computed in a subprocess; per query its
-      cold time, the median of 3 hot runs and the cold run's launches.
-   The sqlite oracles of phases 9 and 10d start after phase 7's timings
-   and after phase 8 respectively, so they compute while phases 8-10c run;
+      cold time, one hot run and the cold run's launches.
+   The sqlite oracles of phases 9 and 10d start after B1's timing and
+   after phase 8 respectively, so they compute while phases 5-10c run;
 11. durable databases and the client surface, right after phase 9, on
    phase 9's generated tables and sqlite answers, in a temporary directory
    removed at the end:
@@ -147,15 +147,17 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
       and on the device route, each against sqlite (answers computed by a
       subprocess started before phase 10), on the NULL-free table and on
       one with 10% of each column NULL (--nulls 0.1): 0 divergences, the
-      device route through the generic path;
+      device route through the generic path, and every dense GROUP BY
+      wider than the fused tiers' on the host aggregate on the host route
+      and on the generic path on the device route;
    c. fuzz_dml, 200 random DML ops (seed 0) in memory on both routes and
       durable with a crash and a reopen: the final state equals sqlite's;
-   d. verify_sf1 and tpch_sf1 at TPC-H SF 0.1: 22/22 equal to sqlite, Q1
+   d. verify_sf1 and tpch_sf1 at TPC-H SF 0.05: 22/22 equal to sqlite, Q1
       and Q6 launch B3;
    e. grouped_agg_bench at 8M rows (B2), string_bench at 200,000 strings,
       adaptive_overtime at 4M rows for 6 s (at least one policy round, the
       thread stopped), record_suites for the ZipfScanOOM classes at scale
-      0.001 (each run verified) and q18_stream at SF 0.1 (the streamed
+      0.001 (each run verified) and q18_stream at SF 0.05 (the streamed
       counter > 0 with the sink, 0 without).
 
 14. the port's repairs of wrong answers of the JAX package (ROADMAP's
@@ -163,11 +165,11 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    a. after phase 6b, on t1 and t3: a filtered aggregate whose lower
       bound is a negative literal launches B1 (t1) resp. B2 (t3) exactly
       once and equals numpy, as the same query with a bound of 0 does;
-   b. after phase 13: a 10M-row table (k INTEGER, s VARCHAR, p
+   b. after phase 13: a 5M-row table (k INTEGER, s VARCHAR, p
       DECIMAL(12,2)): UPDATE ... SET s = 'x', p = p + 0.01 WHERE k % 7 = 0
       with its WHERE on the device path equals numpy; an UPDATE violating
       a UNIQUE index raises and changes neither the table nor the index;
-   c. lineitem at SF 0.1 written with COPY TO and read back with COPY FROM
+   c. lineitem at SF 0.05 written with COPY TO and read back with COPY FROM
       into the DECIMAL schema: its values equal the generated ones, and
       Q1 and Q6 (B3) equal the appender-loaded table's exactly;
    d. a correlated NOT IN over 1M outer rows with NULLs on both sides
@@ -176,7 +178,7 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
 15. committed writes under concurrency (adacom_tpu_torch/tools/
    txn_stress.py at its defaults), after phase 14: a durable database on
    the card checkpointing itself every 32 MiB of WAL; four threads append
-   10M rows into w(id BIGINT, v INTEGER) through autocommit appenders in
+   5M rows into w(id BIGINT, v INTEGER) through autocommit appenders in
    batches of 100,000, one runs 50 UPDATEs over a 1M-row u, one runs 20
    transactions on x (100,000 rows appended and a tenth of x deleted each,
    COMMIT and ROLLBACK in turn) while another connection's autocommit
@@ -196,6 +198,17 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    equal to numpy, each route the one forced, one line per point with the
    route each default takes.
 
+17. the native host library (native/adacom_native.cpp, built for this
+   host with -march=native), right after phase 2: every function of
+   adacom_tpu_torch/native.py against its NumPy path on the same inputs of
+   NATIVE_ROWS elements (adacom_tpu_torch/tools/native_check.py): pack and
+   unpack at six widths, gather, the equality filters on plain and packed
+   words, groupby, grouped sums, the radix argsort, the hash join, the
+   range filters, the row gather and an FSST round trip. Any difference
+   fails the run.
+
+The depths of phases 6b, 8b, 9, 10d, 13d-e, 14b-c and 15 were cut so
+that the command keeps a margin under its time limit (PERF.md section 4).
 Each main path (4, 5, 6, 6b, 9, 10b-d, 11, 12b, 13, 14a, 14b-d, 15, 16) runs with the launch counts
 set to 0 just before it and read just after. The last two lines are the
 kernels' JSON record and the result line. `python3 chip_smoke.py
@@ -221,7 +234,7 @@ HOT_RUNS = 10
 TPCH_SF = 10
 T3_ROWS = 100_000_000
 T3_GROUPS = 12
-T4_ROWS = 100_000_000
+T4_ROWS = 50_000_000
 T4_GROUPS = 1000
 CODEC_COUNTS = (1, 4097, 65535, 65536)
 PEAK_EXTRA_LIMIT = 4 << 30  # the generic path's extra device memory
@@ -934,7 +947,7 @@ def b2_path(hot_runs, n_rows=T3_ROWS):
                 want=full, g=g, v=v)
 
 
-T5_ROWS = 100_000_000
+T5_ROWS = 50_000_000
 T5_PREFIX = 8 << 20  # the host aggregate's and the mesh's rows
 T5_GROUPS = 12
 T5_STRIDE = 3  # keys 0, 3, ..., 33: a 35-slot domain with the NULL slot
@@ -1043,10 +1056,10 @@ def _t5_run(db, con, what, want, hot_runs):
 
 def t5_path(t3_con, t3_want, hot_runs=3, n_rows=T5_ROWS, prefix=T5_PREFIX,
             platform="cuda"):
-    """Phase 6b: SQL NULL semantics of GROUP BY at 100M rows. t5(g, v):
+    """Phase 6b: SQL NULL semantics of GROUP BY at T5_ROWS rows. t5(g, v):
     12 keys plus 5% NULL keys, one key whose v is all NULL, 10% NULL v
     elsewhere; T5_SQL on the generic device path (the default config at
-    100M rows), the host aggregate over the host copies (an 8M-row prefix,
+    T5_ROWS rows), the host aggregate over the host copies (an 8M-row prefix,
     device_agg_min_rows above it, host_materialize=true) and 4 virtual
     shards of the card (the same prefix), each against numpy; the
     NULL-free twin on t3 still launches B2 and equals numpy (t3_want:
@@ -1448,7 +1461,7 @@ def generic_query(con, name, sql, hot_runs, verify, table):
 
 
 def t4_path(hot_runs, n_rows=T4_ROWS, platform="cuda"):
-    """Phase 8b: t4 at 100M rows under compression_codec='auto' (k delta,
+    """Phase 8b: t4 at T4_ROWS rows under compression_codec='auto' (k delta,
     r rle, d dictionary, f alp, c succinct), its aggregates, a device scan
     and a DELETE ... WHERE, every answer held against numpy."""
     import numpy as np
@@ -1533,16 +1546,14 @@ def t4_path(hot_runs, n_rows=T4_ROWS, platform="cuda"):
     t = time.perf_counter()
     con.query(f"SET device_agg_min_rows={n_rows + 1}")
     con.query("SET host_materialize=true")
-    host_t = []
-    for _ in range(3):
-        t1 = time.perf_counter()
-        host = con.query(group_sql).fetchall()
-        host_t.append(time.perf_counter() - t1)
-        verify_grouped(host)
+    t1 = time.perf_counter()
+    host = con.query(group_sql).fetchall()
+    host_ms = (time.perf_counter() - t1) * 1e3
+    verify_grouped(host)
     _default_routing(con)
     phase("generic t4 GROUP BY r on the host aggregate", t,
-          f"== numpy; median of 3 {statistics.median(host_t) * 1e3:.3f} ms "
-          f"against {device_ms:.3f} ms on the generic device path")
+          f"== numpy; one run {host_ms:.3f} ms against {device_ms:.3f} ms "
+          f"on the generic device path")
 
     filt_sql = (f"SELECT count(*), sum(f) FROM t4 WHERE d = {v} "
                 f"AND k BETWEEN 10000000 AND 60000000")
@@ -1622,7 +1633,7 @@ def adaptive_mix(db, con, n_rows, hot_runs):
 # ---- 9. the relational path: TPC-H at scale factor 1 ------------------------
 
 TPCH9_SF = 1.0
-TPCH9_HOT = 3
+TPCH9_HOT = 1
 # the oracle's indexes: tools/verify_sf1.py's and o_custkey
 SQLITE_INDEXES = ("lineitem(l_orderkey)", "lineitem(l_partkey)",
                   "lineitem(l_suppkey)", "orders(o_orderkey)",
@@ -2528,7 +2539,7 @@ SUCCINCT_SCALE = 0.01
 # ClickBench rows: 1M of the module's full 10M, cut to fit the command's
 # time limit beside phase 11 (PERF.md §4)
 CB_SCALE = 0.1
-CB_HOT = 3
+CB_HOT = 1
 
 
 def _zero_counts():
@@ -2718,14 +2729,14 @@ def clickbench_step(oracle, scale):
 
 # phase 13's sizes, cut from the tools' defaults for the time limit (PERF.md
 # section 4): the fuzzers at 300 queries / 200 ops (2,000 at full size),
-# TPC-H SF 0.1 (1), one hot run (3), 8M grouped rows (20M), 200,000
+# TPC-H SF 0.05 (1), one hot run (3), 8M grouped rows (20M), 200,000
 # strings (2M), 4M rows for 6 s (20M for 30 s), the [succinct] scans at
-# scale 0.001 (0.02), Q18/Q21 at SF 0.1 (1)
+# scale 0.001 (0.02), Q18/Q21 at SF 0.05 (1)
 FUZZ_QUERIES = 300
 FUZZ_OPS = 200
 FUZZ_SEED = 0
 FUZZ_NULLS = 0.1  # the NULL fraction of the fuzzer's second table
-TOOLS_SF = 0.1
+TOOLS_SF = 0.05
 GROUPED_ROWS = 8_000_000
 STRING_ROWS = 200_000
 OVERTIME_ROWS = 4_000_000
@@ -2813,6 +2824,13 @@ def fuzz_step(oracle_proc, platform="cuda"):
             check(r["queries"] == FUZZ_QUERIES and not r["divergences"],
                   f"fuzz_differential ({name}, nulls {nulls}): "
                   f"{r['divergences'][:3]}")
+            # each dense GROUP BY wider than the fused tiers' took the
+            # route's aggregate: the host one, or the generic device path
+            took, skipped = ("host_agg", "generic_agg") if cfg is \
+                fd.HOST_ROUTE else ("generic_agg", "host_agg")
+            check(r["routes"][took] > 0 and r["routes"][skipped] == 0,
+                  f"fuzz_differential ({name}, nulls {nulls}): dense GROUP "
+                  f"BYs routed {r['routes']}")
             print(f"[tools fuzz_differential {name}, nulls {nulls}] "
                   f"{FUZZ_QUERIES} queries (seed {FUZZ_SEED}), 0 "
                   f"divergences from sqlite; routes {r['routes']}; "
@@ -2948,8 +2966,8 @@ def tools_path(fuzz_oracle_proc, platform="cuda"):
 
 
 # phase 14's sizes (PERF.md section 4)
-QC_ROWS = 10_000_000  # the UPDATE table
-QC_SF = 0.1  # the COPY round trip of lineitem
+QC_ROWS = 5_000_000  # the UPDATE table
+QC_SF = 0.05  # the COPY round trip of lineitem
 QC_OUTER = 1_000_000  # the correlated NOT IN's outer rows
 QC_NOT_IN = ("SELECT k, x FROM o WHERE x NOT IN (SELECT y FROM s WHERE "
              "s.k = o.k) ORDER BY k, x NULLS FIRST")
@@ -3189,9 +3207,14 @@ def queue_c_path(platform="cuda"):
     not_in_step(platform)
 
 
+# phase 15's appended rows (txn_stress's default: 10M), cut for time
+TXN_W_ROWS = 5_000_000
+
+
 def txn_path(platform="cuda"):
-    """Phase 15: txn_stress at its defaults in a temporary directory,
-    crashed with this script's `crash`; one `phase 15` line."""
+    """Phase 15: txn_stress at its defaults but TXN_W_ROWS appended rows,
+    in a temporary directory, crashed with this script's `crash`; one
+    `phase 15` line."""
     import shutil
     import tempfile
 
@@ -3201,7 +3224,7 @@ def txn_path(platform="cuda"):
     root = tempfile.mkdtemp(prefix="adacom_txn_")
     try:
         r = txn_stress.run(os.path.join(root, "db"), crash,
-                           platform=platform)
+                           platform=platform, w_rows=TXN_W_ROWS)
     except RuntimeError as e:
         raise SmokeFailure(f"phase 15: {e}") from e
     finally:
@@ -3281,6 +3304,25 @@ def routing_path(platform="cuda", t1_rows=N_ROWS):
           f"scans, both routes of each == numpy")
 
 
+# phase 17's input size, in elements per function
+NATIVE_ROWS = 1 << 21
+
+
+def native_step():
+    """Phase 17: every function of native.py against its NumPy path
+    (tools/native_check.py) on inputs of NATIVE_ROWS elements; one line."""
+    from adacom_tpu_torch.tools import native_check
+
+    t0 = time.perf_counter()
+    res = native_check.compare(NATIVE_ROWS)
+    check(not res["failures"], f"phase 17: the native library differs from "
+                               f"its NumPy path in {res['failures']}")
+    phase("native==numpy", t0, f"{res['comparisons']} comparisons at "
+          f"{NATIVE_ROWS} elements, every function of native.py equal to "
+          f"its NumPy path ({os.path.basename(res['library'])}, built for "
+          f"this host); {res['seconds']:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3331,6 +3373,9 @@ def main() -> int:
           f"{max(regs) if regs else 'n/a'}, spill stores "
           f"{sum(e[2] for e in entries)} B over {len(regs)} kernels; "
           f"{'; '.join(grouped)}")
+
+    # ---- 17. the native host library against its NumPy path -----------
+    native_step()
 
     # ---- 3. kernels against their plain versions ------------------------
     t0 = time.perf_counter()
@@ -3412,67 +3457,74 @@ def main() -> int:
           f"read bandwidth {read_gbps:.1f} GB/s (roofline)")
     del words, part, segs, entries
 
-    # ---- 5. TPC-H Q1 and Q6 at SF 10 (B3) ---------------------------------
-    grouped_scan.MULTI_LAUNCHES = 0
-    tp = tpch_path(HOT_RUNS)
-    b3_launches = grouped_scan.MULTI_LAUNCHES
-
-    t0 = time.perf_counter()
-    b3 = {}
-    for q in (1, 6):
-        ms, wrapper, plain, err = time_multi(tp[q]["calls"])
-        b3_err = max(b3_err, err)
-        nbytes = _packed_bytes(tp[q]["calls"], "B3")
-        bb = _bound_bytes(tp[q]["calls"], "B3")
-        b3[q] = (ms, wrapper, plain, bound_ms(bb))
-        print(f"[timing B3 Q{q}] {len(tp[q]['calls'])} launch(es), "
-              f"{nbytes} packed B: kernel {ms:.4f} ms = "
-              f"{nbytes / ms / 1e6:.1f} GB/s, "
-              f"{100 * nbytes / ms / 1e6 / read_gbps:.1f}% of the measured "
-              f"read bandwidth; {_bound_line(bb, ms)}; "
-              f"wrapper {wrapper:.4f} ms; "
-              f"plain version {plain:.3f} ms; hot query "
-              f"{tp[q]['hot'] * 1e3:.3f} ms, host time outside the wrapper "
-              f"{tp[q]['hot'] * 1e3 - wrapper:.3f} ms", flush=True)
-    phase("timing B3", t0, f"lineitem packed {tp['packed_bytes']} B vs "
-          f"plain {tp['plain_bytes']} B")
-    tp["db"].close()
-    del tp["db"]
-
-    # ---- 6. 100M-row GROUP BY (B2) -----------------------------------------
-    grouped_scan.GROUPED_LAUNCHES = 0
-    t3 = b2_path(HOT_RUNS)
-    b2_launches = grouped_scan.GROUPED_LAUNCHES
-
-    t0 = time.perf_counter()
-    b2_ms, b2_wrapper, b2_plain_ms, err = time_grouped(t3["calls"])
-    b2_err = max(b2_err, err)
-    nbytes = _packed_bytes(t3["calls"], "B2")
-    bb = _bound_bytes(t3["calls"], "B2")
-    b2_bound = bound_ms(bb)
-    phase("timing B2", t0, f"{len(t3['calls'])} launch(es), {nbytes} packed "
-          f"B: kernel {b2_ms:.4f} ms = {nbytes / b2_ms / 1e6:.1f} GB/s, "
-          f"{100 * nbytes / b2_ms / 1e6 / read_gbps:.1f}% of the measured "
-          f"read bandwidth; "
-          f"{_bound_line(bb, b2_ms)}; wrapper {b2_wrapper:.4f} ms; plain version {b2_plain_ms:.3f} ms; "
-          f"hot query {t3['hot'] * 1e3:.3f} ms")
-    # ---- 6b. GROUP BY over NULLs at 100M rows on three routes -----------
-    t0 = time.perf_counter()
-    _zero_counts()
-    t5_path(t3["db"].connect(), t3["want"])
-    phase("t5 nulls", t0, f"launches on this path: {_counts_line()}")
-    # ---- 14a. negative bounds on t1 and t3 (B1, B2) ----------------------
-    t0 = time.perf_counter()
-    _zero_counts()
-    negative_bounds_step(con1, N_ROWS, t3)
-    phase("queue C a", t0, f"launches on this path: {_counts_line()}")
-    t3["db"].close()
-    del t3["db"], t3["g"], t3["v"]
-
-    # the sqlite oracles of phases 9 and 10d, started once no kernel is
-    # being timed (ClickBench's after phase 8 has freed t4's host arrays):
-    # they compute while phases 8-10c run
+    # the sqlite oracle of phase 9, started once B1 is timed: it computes
+    # while phases 5-8 run (about 210 s of command on the card's host)
     tpch_oracle_proc = start_oracle("--tpch-oracle", TPCH9_SF)
+    try:
+        # ---- 5. TPC-H Q1 and Q6 at SF 10 (B3) -------------------------------
+        grouped_scan.MULTI_LAUNCHES = 0
+        tp = tpch_path(HOT_RUNS)
+        b3_launches = grouped_scan.MULTI_LAUNCHES
+
+        t0 = time.perf_counter()
+        b3 = {}
+        for q in (1, 6):
+            ms, wrapper, plain, err = time_multi(tp[q]["calls"])
+            b3_err = max(b3_err, err)
+            nbytes = _packed_bytes(tp[q]["calls"], "B3")
+            bb = _bound_bytes(tp[q]["calls"], "B3")
+            b3[q] = (ms, wrapper, plain, bound_ms(bb))
+            print(f"[timing B3 Q{q}] {len(tp[q]['calls'])} launch(es), "
+                  f"{nbytes} packed B: kernel {ms:.4f} ms = "
+                  f"{nbytes / ms / 1e6:.1f} GB/s, "
+                  f"{100 * nbytes / ms / 1e6 / read_gbps:.1f}% of the measured "
+                  f"read bandwidth; {_bound_line(bb, ms)}; "
+                  f"wrapper {wrapper:.4f} ms; "
+                  f"plain version {plain:.3f} ms; hot query "
+                  f"{tp[q]['hot'] * 1e3:.3f} ms, host time outside the wrapper "
+                  f"{tp[q]['hot'] * 1e3 - wrapper:.3f} ms", flush=True)
+        phase("timing B3", t0, f"lineitem packed {tp['packed_bytes']} B vs "
+              f"plain {tp['plain_bytes']} B")
+        tp["db"].close()
+        del tp["db"]
+
+        # ---- 6. 100M-row GROUP BY (B2) --------------------------------------
+        grouped_scan.GROUPED_LAUNCHES = 0
+        t3 = b2_path(HOT_RUNS)
+        b2_launches = grouped_scan.GROUPED_LAUNCHES
+
+        t0 = time.perf_counter()
+        b2_ms, b2_wrapper, b2_plain_ms, err = time_grouped(t3["calls"])
+        b2_err = max(b2_err, err)
+        nbytes = _packed_bytes(t3["calls"], "B2")
+        bb = _bound_bytes(t3["calls"], "B2")
+        b2_bound = bound_ms(bb)
+        phase("timing B2", t0, f"{len(t3['calls'])} launch(es), {nbytes} packed "
+              f"B: kernel {b2_ms:.4f} ms = {nbytes / b2_ms / 1e6:.1f} GB/s, "
+              f"{100 * nbytes / b2_ms / 1e6 / read_gbps:.1f}% of the measured "
+              f"read bandwidth; "
+              f"{_bound_line(bb, b2_ms)}; wrapper {b2_wrapper:.4f} ms; plain version {b2_plain_ms:.3f} ms; "
+              f"hot query {t3['hot'] * 1e3:.3f} ms")
+        # ---- 6b. GROUP BY over NULLs at T5_ROWS rows on three routes --------
+        t0 = time.perf_counter()
+        _zero_counts()
+        t5_path(t3["db"].connect(), t3["want"])
+        phase("t5 nulls", t0, f"launches on this path: {_counts_line()}")
+        # ---- 14a. negative bounds on t1 and t3 (B1, B2) ---------------------
+        t0 = time.perf_counter()
+        _zero_counts()
+        negative_bounds_step(con1, N_ROWS, t3)
+        phase("queue C a", t0, f"launches on this path: {_counts_line()}")
+        t3["db"].close()
+        del t3["db"], t3["g"], t3["v"]
+
+    except BaseException:
+        stop(tpch_oracle_proc)
+        raise
+
+    # the sqlite oracles of phases 10d and 13b start below (ClickBench's
+    # once phase 8 has freed t4's host arrays); they compute while phases
+    # 9-10c run
     cb_oracle = fuzz_oracle_proc = None
     try:
         # ---- 8. the generic device path -------------------------------------

@@ -79,10 +79,21 @@ def oracle7():
 
 @pytest.mark.parametrize("route", ["default", "device", "host"])
 def test_fuzz_differential_no_divergence(oracle7, route):
+    from adacom_tpu_torch.exec import executor
+
+    gate = executor.dense_agg_on_host
     res = fd.run(50, 7, "cpu", fd.ROUTES[route], oracle7)
     assert res["queries"] == 50
     assert res["divergences"] == []
     assert res["routes"]["device_scan"] > 0
+    # each dense GROUP BY wider than the fused tiers take is routed as on a
+    # card: on the host aggregate under the host route and the defaults
+    # (20,000 rows < device_agg_min_rows), on the generic path under the
+    # device route; the engine's own gate is back after the run
+    assert executor.dense_agg_on_host is gate
+    on_host = route != "device"
+    assert res["routes"]["host_agg" if on_host else "generic_agg"] > 0
+    assert res["routes"]["generic_agg" if on_host else "host_agg"] == 0
     if route == "device":
         # every query reads the table through the device path: the generic
         # path or a fused tier (a negative bound folds into B1/B2's range)
