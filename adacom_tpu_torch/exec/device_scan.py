@@ -143,12 +143,18 @@ def _rows(v: torch.Tensor, n: int) -> torch.Tensor:
     return v if v.dim() and v.shape[0] == n else torch.broadcast_to(v, (n,))
 
 
-def _chunk(metas, dtypes, n_pad, filt, fparams, counts, args, dels=None):
+def _chunk(metas, dtypes, n_pad, filt, fparams, counts, args, dels=None,
+           tr=None):
     """Decode and filter a chunk of a pool: (mask, cols) with the flat
     (n * n_pad,) mask of rows that are real, not deleted (dels: the flat
     delete mask, or None) and pass the filter, and cols as
-    _decode_columns gives them."""
+    _decode_columns gives them; in scan.decode and scan.filter spans of
+    the statement's trace `tr`, where given."""
+    sp = None if tr is None else tr.begin("scan.decode")
     cols = _decode_columns(metas, dtypes, args, n_pad)
+    if sp is not None:
+        tr.end(sp)
+        sp = tr.begin("scan.filter")
     mask = tail_mask(n_pad, counts).reshape(-1)
     if dels is not None:
         mask &= ~dels
@@ -158,6 +164,8 @@ def _chunk(metas, dtypes, n_pad, filt, fparams, counts, args, dels=None):
         mask &= _rows(fv, mask.shape[0]).to(torch.bool)
         if fm is not None:
             mask &= _rows(fm, mask.shape[0])
+    if sp is not None:
+        tr.end(sp)
     return mask, cols
 
 
@@ -323,6 +331,16 @@ def _agg_partials(cols, mask, params, spec_entries, group_fns, dense):
     return tuple(outs)
 
 
+def _merged(spec_entries, partials, batch) -> list:
+    """A chunk's partials merged into those of the chunks before it
+    (None before the first)."""
+    if partials is None:
+        return list(batch)
+    return [agg_ops.merge_partials(_merge_kind(spec_entries[k][0]),
+                                   partials[k], batch[k])
+            for k in range(len(batch))]
+
+
 def _pull_partials(partials) -> List[Any]:
     """Device partials -> numpy, with one transfer per dtype."""
     outs: List[Any] = [None] * len(partials)
@@ -406,6 +424,8 @@ class DeviceScan:
         that declines() to the host tier first."""
         if declines(get):
             raise ValueError("a UBIGINT scan reached the generic device path")
+        tr = self.trace
+        sp = None if tr is None else tr.begin("scan.pools")
         if snap is None:
             snap = self._pin_snapshot(get.table)
         filt = self._compiled_filter(get)
@@ -413,7 +433,8 @@ class DeviceScan:
                    if filt is not None else ())
         dtypes = [compute_dtype_of(t) for t in get.types]
         pools: dict = {}
-        for i in self._zonemap_candidates(get, lits, snap):
+        candidates = self._zonemap_candidates(get, lits, snap)
+        for i in candidates:
             segs = [snap.segment(c, i) for c in get.column_ids]
             count = segs[0].count if segs else snap.segment_rows(i)
             metas, arrays = [], []
@@ -426,7 +447,28 @@ class DeviceScan:
             n_pad = bitpack.ROWS * bitpack.lanes_for(count)
             key = (tuple(metas), n_pad, del_mask is not None)
             pools.setdefault(key, []).append((i, count, segs, arrays, del_mask))
+        if sp is not None:
+            tr.end(sp, segments=snap.segment_count(),
+                   segments_kept=len(candidates), pools=len(pools),
+                   chunks=sum(-(-len(e) // max(1, CHUNK_ROWS // k[1]))
+                              for k, e in pools.items()))
         return pools, dtypes, filt, fparams
+
+    def _cached_stack(self, table, key, build):
+        """The table's pool-cache entry for `key`, stacked by build() and
+        kept on a miss; in a scan.stack span (hit, bytes stacked)."""
+        tr = self.trace
+        sp = None if tr is None else tr.begin("scan.stack")
+        cache = pool_cache(table)
+        stacked = cache.get(key)
+        hit = stacked is not None
+        if not hit:
+            stacked = build()
+            cache.put(key, stacked)
+        if sp is not None:
+            tr.end(sp, hit=int(hit),
+                   bytes_stacked=0 if hit else _tensor_bytes(stacked))
+        return stacked
 
     def _pool_chunks(self, table, key, entries, dtypes, filt, fparams):
         """Decode and filter one pool on the device, a chunk at a time.
@@ -439,17 +481,12 @@ class DeviceScan:
         metas, n_pad, has_del = key
         # stacked arguments, reused while no segment of the pool changes;
         # keyed on monotonic segment serials, never on id()
-        cache = pool_cache(table)
-        stack_key = ("generic", key, tuple(
-            (s.serial, s.version) for e in entries for s in e[2]))
-        stacked = cache.get(stack_key)
-        if stacked is None:
-            counts_t = torch.tensor([e[1] for e in entries],
-                                    dtype=torch.int64, device=dev)
-            stacked = (counts_t,) + tuple(
+        stacked = self._cached_stack(table, ("generic", key, tuple(
+            (s.serial, s.version) for e in entries for s in e[2])),
+            lambda: (torch.tensor([e[1] for e in entries],
+                                  dtype=torch.int64, device=dev),) + tuple(
                 _stack([e[3][a] for e in entries], dev)
-                for a in range(len(entries[0][3])))
-            cache.put(stack_key, stacked)
+                for a in range(len(entries[0][3]))))
         counts_t, args = stacked[0], stacked[1:]
         step = max(1, CHUNK_ROWS // n_pad)
         for s0 in range(0, len(entries), step):
@@ -463,7 +500,8 @@ class DeviceScan:
                 dels = torch.from_numpy(dm.reshape(-1)).to(dev)
             mask, cols = _chunk(metas, dtypes, n_pad, filt, fparams,
                                 counts_t[s0:s0 + step],
-                                [a[s0:s0 + step] for a in args], dels)
+                                [a[s0:s0 + step] for a in args], dels,
+                                self.trace)
             yield [e[0] for e in part], [e[1] for e in part], n_pad, mask, cols
 
     def _filtered_chunks(self, get, lits, snap=None):
@@ -527,25 +565,34 @@ class DeviceScan:
         return Mat(list(get.names), list(get.types), list(dicts), cols_np,
                    valids_np)
 
-    def _scan_agg_batches(self, get, lits, spec_entries, group_fns, dense,
-                          params):
-        """Partials of every decoded chunk (pools in chunks). With a mesh,
-        each pool of segments without a delete mask runs distributed
-        instead and yields its merged partials once (the JAX package sends
+    def _scan_agg_partials(self, get, lits, spec_entries, group_fns, dense,
+                           params):
+        """The scan's partials, every decoded chunk's (pools in chunks)
+        merged on the device, or None where no segment is read. With a
+        mesh, each pool of segments without a delete mask runs distributed
+        instead and gives its merged partials once (the JAX package sends
         segments with a delete mask down its single-device path)."""
         mesh = self.db.mesh
+        tr = self.trace
         pools, dtypes, filt, fparams = self._scan_pools(get, lits)
+        partials = None
         for key, entries in pools.items():
             if mesh is not None and not key[2]:
                 self.db.dist_stats["scan_agg"] += 1
-                yield self._distributed_pool(
-                    get.table, key, entries, dtypes, filt, fparams,
-                    spec_entries, group_fns, dense, params)
+                partials = _merged(spec_entries, partials,
+                                   self._distributed_pool(
+                                       get.table, key, entries, dtypes, filt,
+                                       fparams, spec_entries, group_fns,
+                                       dense, params))
                 continue
             for _ids, _counts, _n_pad, mask, cols in self._pool_chunks(
                     get.table, key, entries, dtypes, filt, fparams):
-                yield _agg_partials(cols, mask, params, spec_entries,
-                                    group_fns, dense)
+                sp = None if tr is None else tr.begin("agg.partials")
+                partials = _merged(spec_entries, partials, _agg_partials(
+                    cols, mask, params, spec_entries, group_fns, dense))
+                if sp is not None:
+                    tr.end(sp)
+        return partials
 
     def _distributed_pool(self, table, key, entries, dtypes, filt, fparams,
                           spec_entries, group_fns, dense, params):
@@ -562,20 +609,19 @@ class DeviceScan:
         n, n_dev = len(entries), mesh.size
         n_padded = pmesh.pad_to_multiple(
             max(1 << (n - 1).bit_length(), n_dev), n_dev)
-        cache = pool_cache(table)
-        stack_key = ("mesh", key, tuple(
-            (s.serial, s.version) for e in entries for s in e[2]),
-            n_padded, n_dev)
-        stacked = cache.get(stack_key)
-        if stacked is None:
+
+        def build():
             counts = np.zeros(n_padded, np.int64)
             counts[:n] = [e[1] for e in entries]
             pad = [entries[-1][3]] * (n_padded - n)
             args = [_stack([e[3][a] for e in entries] + [p[a] for p in pad],
                            dev) for a in range(len(entries[0][3]))]
-            stacked = tuple(pmesh.shard_leading(mesh, t)
-                            for t in [torch.from_numpy(counts).to(dev)] + args)
-            cache.put(stack_key, stacked)
+            return tuple(pmesh.shard_leading(mesh, t)
+                         for t in [torch.from_numpy(counts).to(dev)] + args)
+
+        stacked = self._cached_stack(table, ("mesh", key, tuple(
+            (s.serial, s.version) for e in entries for s in e[2]),
+            n_padded, n_dev), build)
         step = max(1, CHUNK_ROWS // n_pad)
 
         def body(_shard, counts_s, *rest):
@@ -585,12 +631,8 @@ class DeviceScan:
                 mask, cols = _chunk(metas, dtypes, n_pad, filt, fparams_s,
                                     counts_s[s0:s0 + step],
                                     [a[s0:s0 + step] for a in args_s])
-                part = _agg_partials(cols, mask, params_s, spec_entries,
-                                     group_fns, dense)
-                out = list(part) if out is None else [
-                    agg_ops.merge_partials(_merge_kind(spec_entries[k][0]),
-                                           out[k], part[k])
-                    for k in range(len(part))]
+                out = _merged(spec_entries, out, _agg_partials(
+                    cols, mask, params_s, spec_entries, group_fns, dense))
             return out
 
         shards = coll.unzip(coll.shard_map(mesh, body, list(stacked),
@@ -607,11 +649,11 @@ class DeviceScan:
         """The generic branch of _aggregate_over_scan: group keys and
         aggregate arguments compile once, every chunk's partials merge on
         the device, and one pull per dtype brings them to the host finish."""
-        from adacom_tpu_torch.exec.executor import (
-            Mat, _agg_finalize_row, _grouped_mat)
-
         global RUNS
         RUNS += 1
+        tr = self.trace
+        if tr is not None:
+            tr.set(route="generic", launches=0)
         comp = ExprCompiler()
         group_fns = [comp._c(g) for g in node.groups]
         arg_fns = {}
@@ -632,38 +674,46 @@ class DeviceScan:
         params = device_args(tuple(p(lits) for p in comp.preps),
                              self.db.device)
 
-        partials = None
-        for batch in self._scan_agg_batches(get, lits, spec_entries,
-                                            group_fns, dense, params):
-            if partials is None:
-                partials = list(batch)
-            else:
-                partials = [
-                    agg_ops.merge_partials(_merge_kind(spec_entries[k][0]),
-                                           partials[k], batch[k])
-                    for k in range(len(batch))
-                ]
+        partials = self._scan_agg_partials(get, lits, spec_entries,
+                                           group_fns, dense, params)
         if partials is None:
             partials = _init_empty_partials(spec_entries, dense)
 
+        # the pull waits for the card to finish the scan, then copies
+        sp = None if tr is None else tr.begin("agg.pull")
         host = _pull_partials(partials)
-        dicts = getattr(node, "dicts", [None] * len(node.names))
-        if not node.groups:
-            prim = [h.item() if h.ndim == 0 else h for h in host]
-            out_vals = [f(prim) for f in finishers]
-            cols, valids = _agg_finalize_row(node, out_vals)
-            return Mat(list(node.names), list(node.types), dicts, cols, valids)
+        if sp is not None:
+            tr.end(sp, bytes_pulled=_tensor_bytes(partials))
+            sp = tr.begin("agg.finish")
+        mat = _finish_generic(node, finishers, dense, host, rows_idx)
+        if sp is not None:
+            tr.end(sp, groups=mat.nrows)
+        return mat
 
-        mins, strides, sizes, _domain, nullable = dense
-        gidx = np.nonzero(host[rows_idx] > 0)[0]
-        prim = [h[gidx] for h in host]
-        cols: List[np.ndarray] = []
-        valids: List[Optional[np.ndarray]] = []
-        for gi, g in enumerate(node.groups):
-            slot = (gidx // strides[gi]) % sizes[gi]
-            cols.append((slot + mins[gi]).astype(compute_dtype_of(g.ty)))
-            ok = slot != sizes[gi] - 1 if nullable[gi] else None
-            valids.append(None if ok is None or ok.all() else ok)
-            if valids[-1] is not None:
-                cols[-1][~ok] = 0
-        return _grouped_mat(node, cols, valids, [f(prim) for f in finishers])
+
+def _finish_generic(node, finishers, dense, host, rows_idx):
+    """The host finish of a generic scan-aggregate over its pulled
+    partials: the present groups' keys and the aggregates' values."""
+    from adacom_tpu_torch.exec.executor import (
+        Mat, _agg_finalize_row, _grouped_mat)
+
+    dicts = getattr(node, "dicts", [None] * len(node.names))
+    if not node.groups:
+        prim = [h.item() if h.ndim == 0 else h for h in host]
+        out_vals = [f(prim) for f in finishers]
+        cols, valids = _agg_finalize_row(node, out_vals)
+        return Mat(list(node.names), list(node.types), dicts, cols, valids)
+
+    mins, strides, sizes, _domain, nullable = dense
+    gidx = np.nonzero(host[rows_idx] > 0)[0]
+    prim = [h[gidx] for h in host]
+    cols: List[np.ndarray] = []
+    valids: List[Optional[np.ndarray]] = []
+    for gi, g in enumerate(node.groups):
+        slot = (gidx // strides[gi]) % sizes[gi]
+        cols.append((slot + mins[gi]).astype(compute_dtype_of(g.ty)))
+        ok = slot != sizes[gi] - 1 if nullable[gi] else None
+        valids.append(None if ok is None or ok.all() else ok)
+        if valids[-1] is not None:
+            cols[-1][~ok] = 0
+    return _grouped_mat(node, cols, valids, [f(prim) for f in finishers])

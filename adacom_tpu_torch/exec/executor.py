@@ -48,9 +48,10 @@ from adacom_tpu_torch import types as tt
 from adacom_tpu_torch.ops import bitpack, fused_scan, grouped_scan
 from adacom_tpu_torch.sql import bound as b
 from adacom_tpu_torch.exec.expr import ExprCompiler, CompiledExpr, compute_dtype_of
-from adacom_tpu_torch.exec.device_scan import DeviceScan, declines, pool_cache
+from adacom_tpu_torch.exec.device_scan import DeviceScan, declines
 from adacom_tpu_torch.exec.join import Join, _hash_join_pairs, _row_keys
 from adacom_tpu_torch.exec.mat import ExecError, Mat, _FallbackToDevice
+from adacom_tpu_torch.utils.trace import StatementTrace
 
 
 def dense_agg_on_host(rows: int, domain: int, device_type: str, mesh,
@@ -74,10 +75,10 @@ class Executor(DeviceScan, Join):
     def __init__(self, database):
         self.db = database
         self.config = database.config
-        # per-operator profiling sink: id(node) -> (inclusive_s, rows_out)
-        # (reference OperatorProfiler, src/main/query_profiler.cpp; enabled
-        # by EXPLAIN ANALYZE / PRAGMA enable_profiling)
-        self.profile: Optional[Dict[int, tuple]] = None
+        # the running statement's spans and counters (utils/trace.py; the
+        # connection sets it under PRAGMA enable_profiling and for EXPLAIN
+        # ANALYZE), else None
+        self.trace: Optional[StatementTrace] = None
 
     # ------------------------------------------------------------------
     def execute(self, plan: b.LogicalOp, lits: List[Any]) -> Mat:
@@ -122,17 +123,12 @@ class Executor(DeviceScan, Join):
                         sq.cached_value = np.unique(col)
 
     def _exec(self, node: b.LogicalOp, lits) -> Mat:
-        if self.profile is None:
-            return self._dispatch(node, lits)
-        import time as _time
-
-        t0 = _time.perf_counter()
+        tr = self.trace
+        sp = None if tr is None else tr.begin(
+            "op." + type(node).__name__.replace("Logical", ""), id(node))
         mat = self._dispatch(node, lits)
-        dt, rows = _time.perf_counter() - t0, mat.nrows
-        prev = self.profile.get(id(node))
-        if prev is not None:  # node re-executed (e.g. subquery): accumulate
-            dt, rows = dt + prev[0], rows + prev[1]
-        self.profile[id(node)] = (dt, rows)
+        if sp is not None:
+            tr.end(sp, rows=mat.nrows)
         return mat
 
     def _dispatch(self, node: b.LogicalOp, lits) -> Mat:
@@ -189,7 +185,12 @@ class Executor(DeviceScan, Join):
         Every reader access below resolves through the snapshot — live
         ``columns[c].segments`` lists mutate under concurrent appends
         (unseal-partial pops the tail) and raced the round-4 scans."""
-        return table.read_snapshot(getattr(self, "conn_token", None))
+        tr = self.trace
+        sp = None if tr is None else tr.begin("scan.snapshot")
+        snap = table.read_snapshot(getattr(self, "conn_token", None), tr)
+        if sp is not None:
+            tr.end(sp)
+        return snap
 
     def _zonemap_candidates(self, get: b.LogicalGet, lits, snap=None) -> List[int]:
         """Vectorized segment skipping from (col op literal) conjuncts
@@ -253,12 +254,17 @@ class Executor(DeviceScan, Join):
             snap = self._pin_snapshot(get.table)
             candidates = self._zonemap_candidates(get, lits, snap)
             if on_host or len(candidates) <= limit:
+                tr = self.trace
+                sp = None if tr is None else tr.begin("scan.host")
                 try:
                     return self._materialize_scan_host(get, lits, candidates,
                                                        snap)
                 except _FallbackToDevice:
                     if declined:
                         raise
+                finally:
+                    if sp is not None:
+                        tr.end(sp, segments=len(candidates))
         return self._materialize_scan_device(get, lits)
 
     def _materialize_scan_host(self, get: b.LogicalGet, lits, candidates,
@@ -537,8 +543,12 @@ class Executor(DeviceScan, Join):
         if isinstance(child, (b.LogicalJoin, b.LogicalProject)):
             mat = self._try_streaming_join_agg(node, child, lits)
             if mat is not None:
+                if self.trace is not None:
+                    self.trace.set(route="join", launches=0)
                 return mat
         mat = self._exec(child, lits)
+        if self.trace is not None:
+            self.trace.set(route="host", launches=0)
         return self._aggregate_host(node, mat, lits)
 
     def _agg_specs(self, node: b.LogicalAggregate):
@@ -680,7 +690,7 @@ class Executor(DeviceScan, Join):
         if get is not None:
             # seal staged appends first: zonemap stats only cover segments
             # (unflushed staging made the domain collapse to one group)
-            get.table.flush()
+            get.table.flush(self.trace)
         mins, sizes, nullable = [], [], []
         for g in node.groups:
             col = None
@@ -759,6 +769,8 @@ class Executor(DeviceScan, Join):
                     grouped and dense_agg_on_host(
                         get.table.row_count(), dense[3],
                         self.db.device.type, self.db.mesh, self.config)):
+            if self.trace is not None:
+                self.trace.set(route="host", launches=0)
             mat = self._materialize_scan(get, lits, declined)
             return self._aggregate_host(node, mat, lits)
         return self._aggregate_generic(node, get, lits, specs, finishers,
@@ -814,6 +826,7 @@ class Executor(DeviceScan, Join):
         tot_sum, tot_cnt = 0, 0   # tot_cnt = valid [& predicate] rows
         raw_rows = 0              # all visible rows (count(*) w/o pred)
         gmin = gmax = None
+        launches = 0
         if not empty:
             classes: Dict[int, list] = {}
             for s in segs:
@@ -840,26 +853,27 @@ class Executor(DeviceScan, Join):
             # stacked planes per width class, reused while no segment of
             # the class changes; keyed on monotonic segment serials, which
             # (unlike id()) are never reused
-            cache = pool_cache(table)
+            tr = self.trace
+            sp = None if tr is None else tr.begin("agg.fused")
             need_minmax = any(k in ("min", "max")
                               for k, _a, _acc, _d in specs)
             for w, entries in classes.items():
                 L_pad = max(e[3] for e in entries)
                 cls_valid = any(e[6] is not None for e in entries)
-                key = ("scan", w, L_pad, cls_valid,
-                       tuple((e[4], e[5]) for e in entries))
-                stacked = cache.get(key)
-                if stacked is None:
+
+                def stack(entries=entries, L_pad=L_pad, cls_valid=cls_valid):
                     vstk = None
                     if cls_valid:
                         ones = torch.full((1, L_pad), -1, dtype=torch.int32,
                                           device=entries[0][0].device)
                         vstk = _stack_planes([ones if e[6] is None else e[6]
                                               for e in entries], L_pad)
-                    stacked = (_stack_planes([e[0] for e in entries], L_pad),
-                               vstk)
-                    cache.put(key, stacked)
-                wstk, vstk = stacked
+                    return (_stack_planes([e[0] for e in entries], L_pad),
+                            vstk)
+
+                wstk, vstk = self._cached_stack(table, (
+                    "scan", w, L_pad, cls_valid,
+                    tuple((e[4], e[5]) for e in entries)), stack)
                 counts = np.asarray([e[1] for e in entries], np.int64)
                 mins = np.asarray([e[2] for e in entries], np.int64)
                 lanes = np.asarray([e[3] for e in entries], np.int64)
@@ -871,11 +885,16 @@ class Executor(DeviceScan, Join):
                 if c_ > 0:
                     gmin = mn_ if gmin is None else min(gmin, mn_)
                     gmax = mx_ if gmax is None else max(gmax, mx_)
+            launches = len(classes)
+            if sp is not None:
+                tr.end(sp, tier="b1", launches=launches)
 
         # the fused scan tier ran (its plain version on CPU tensors, where
         # the launch counter stays still), as B2 and B3 count theirs
         self.db.dist_stats["pallas_scan_agg"] = \
             self.db.dist_stats.get("pallas_scan_agg", 0) + 1
+        if self.trace is not None:
+            self.trace.set(route="b1", launches=launches)
         has_pred = lo is not None or hi is not None
         prim = []
         for kind, arg, acc, _d in specs:
@@ -964,6 +983,7 @@ class Executor(DeviceScan, Join):
 
         sums = np.zeros(domain, np.int64)
         cnts = np.zeros(domain, np.int64)
+        launches = 0
         if not empty:
             classes: Dict[tuple, list] = {}
             for sg, sv in pairs:
@@ -980,17 +1000,16 @@ class Executor(DeviceScan, Join):
                     (garr[0], varr[0], sv.count, sg._packed.min_factor,
                      sv._packed.min_factor, Lg, sg.serial, sg.version,
                      sv.serial, sv.version))
-            cache = pool_cache(table)
+            tr = self.trace
+            sp = None if tr is None else tr.begin("agg.fused")
             for (gw, vw), entries in classes.items():
                 L_pad = max(e[5] for e in entries)
-                key = ("grouped", gw, vw, L_pad,
-                       tuple(e[6:] for e in entries))
-                stacked = cache.get(key)
-                if stacked is None:
-                    stacked = (_stack_planes([e[0] for e in entries], L_pad),
-                               _stack_planes([e[1] for e in entries], L_pad))
-                    cache.put(key, stacked)
-                gstk, vstk = stacked
+                gstk, vstk = self._cached_stack(
+                    table, ("grouped", gw, vw, L_pad,
+                            tuple(e[6:] for e in entries)),
+                    lambda entries=entries, L_pad=L_pad: (
+                        _stack_planes([e[0] for e in entries], L_pad),
+                        _stack_planes([e[1] for e in entries], L_pad)))
                 counts = np.asarray([e[2] for e in entries], np.int64)
                 # kernel group ids are DOMAIN slots: code + (gmin - base)
                 gmins = np.asarray([e[3] - mins_d[0] for e in entries],
@@ -1002,9 +1021,14 @@ class Executor(DeviceScan, Join):
                     lanes=lanes)
                 sums += out[:, 0]
                 cnts += out[:, 1]
+            launches = len(classes)
+            if sp is not None:
+                tr.end(sp, tier="b2", launches=launches)
 
         self.db.dist_stats["pallas_grouped_agg"] = \
             self.db.dist_stats.get("pallas_grouped_agg", 0) + 1
+        if self.trace is not None:
+            self.trace.set(route="b2", launches=launches)
         present = cnts > 0
         gidx = np.nonzero(present)[0]
         prim = []
@@ -1171,11 +1195,15 @@ class Executor(DeviceScan, Join):
 
         kstrides = tuple(int(s) for s in strides) if grouped else ()
         launches = []
+        tr = self.trace
+        sp = None
         if not empty_all:
-            cache = pool_cache(get.table)
+            sp = None if tr is None else tr.begin("agg.fused")
             for ckey, entries in classes.items():
                 if not any(w > 0 for _c, w in ckey):
                     # all-constant planes: no words to size the lane grid
+                    if sp is not None:
+                        tr.end(sp, tier="b3", declined=1)
                     return None
                 scal = np.zeros((len(entries), grouped_scan.SCAL_COLS),
                                 np.uint32)
@@ -1211,9 +1239,8 @@ class Executor(DeviceScan, Join):
                     if seg_empty:
                         scal[ei, grouped_scan._SC_COUNT] = 0
                         scal[ei, grouped_scan._SC_PRED:] = 0
-                stack_key = ("multi", ckey, tuple(seg_sig))
-                stacked = cache.get(stack_key)
-                if stacked is None:
+
+                def stack(entries=entries):
                     L_pad = max([L for _i2, _c2, planes in entries
                                  for _c3, w, L, *_r3 in planes if w > 0])
                     gstacks, vstacks = [], []
@@ -1224,8 +1251,10 @@ class Executor(DeviceScan, Join):
                                 [e[2][pj][5] for e in entries], L_pad)
                         (gstacks if pj < n_group_planes
                          else vstacks).append(stackp)
-                    stacked = (gstacks, vstacks)
-                    cache.put(stack_key, stacked)
+                    return gstacks, vstacks
+
+                stacked = self._cached_stack(
+                    get.table, ("multi", ckey, tuple(seg_sig)), stack)
                 launches.append((stacked[0], stacked[1], scal))
             # shape checks before any launch: a shape the kernel does not
             # take goes to the host tier; a failing launch raises
@@ -1234,6 +1263,8 @@ class Executor(DeviceScan, Join):
                     grouped_scan.check_multi(gstacks, vstacks, scal, domain,
                                              kstrides, kmonos, kpreds)
             except ValueError:
+                if sp is not None:
+                    tr.end(sp, tier="b3", declined=1)
                 return None
         sums = np.zeros((domain, len(monos)), np.int64)
         cnts = np.zeros(domain, np.int64)
@@ -1242,6 +1273,8 @@ class Executor(DeviceScan, Join):
                 gstacks, vstacks, scal, domain, kstrides, kmonos, kpreds)
             sums += out[:, :len(monos)]
             cnts += out[:, len(monos)]
+        if sp is not None:
+            tr.end(sp, tier="b3", launches=len(launches))
 
         # ---- finish ----
         def spec_prim(plan, gsel):
@@ -1255,6 +1288,8 @@ class Executor(DeviceScan, Join):
 
         self.db.dist_stats["pallas_multi_agg"] = \
             self.db.dist_stats.get("pallas_multi_agg", 0) + 1
+        if tr is not None:
+            tr.set(route="b3", launches=len(launches))
         if not grouped:
             prim = []
             for plan in spec_plans:

@@ -30,6 +30,7 @@ from adacom_tpu_torch.sql.binder import Binder, BindError
 from adacom_tpu_torch.sql.optimizer import optimize
 from adacom_tpu_torch.sql.parser import parse
 from adacom_tpu_torch.storage.table import TransactionConflict
+from adacom_tpu_torch.utils import trace as qtrace
 
 
 # the Chrome trace PRAGMA tpu_profile_stop writes into the trace directory
@@ -55,6 +56,8 @@ class Connection:
         # MVCC identity: write-ownership token + reader visibility key
         self._token = next(_TOKENS)
         self.executor.conn_token = self._token
+        # statement numbers on this connection (the spans' query ids)
+        self._statement_ids = itertools.count(1)
         self._prepared: dict = {}  # name -> PreparedStatement
 
     # ------------------------------------------------------------------
@@ -133,9 +136,47 @@ class Connection:
         except TransactionConflict as e:
             raise SQLError(str(e)) from e
 
+    def _new_trace(self) -> qtrace.StatementTrace:
+        return qtrace.StatementTrace(
+            f"{self._token}.{next(self._statement_ids)}")
+
     def _dispatch(self, stmt, key, lits, structural, stmt_idx, sql):
-        t0 = time.perf_counter()
-        self.db.buffer_manager.begin_statement()
+        """Run one statement; under PRAGMA enable_profiling in a
+        `query` span of a new StatementTrace (or, for a statement that
+        another runs, such as EXECUTE's, of the running one), whose
+        profile becomes last_profile."""
+        outer = self.executor.trace
+        tr = outer
+        if tr is None and self.db.config.enable_profiling:
+            tr = self.executor.trace = self._new_trace()
+        sp = None if tr is None else tr.begin("query")
+        try:
+            res = self._run_stmt(stmt, key, lits, structural, stmt_idx, sql,
+                                 tr)
+        finally:
+            self.executor.trace = outer
+        if sp is not None:
+            tr.end(sp)
+            if tr is not outer:
+                self.last_profile = self._profile(stmt, tr, sp)
+        return res
+
+    def _profile(self, stmt, tr: qtrace.StatementTrace, root: dict) -> dict:
+        """last_profile of a statement (QueryProfiler parity,
+        src/main/query_profiler.cpp): a SELECT's per-phase timers and
+        per-operator tree (QueryTreeToString), every statement's total,
+        spans and counters."""
+        prof = {"statement": type(stmt).__name__, "query_id": tr.query_id}
+        if isinstance(stmt, ast.SelectStmt):
+            prof["phases"] = qtrace.phases(tr.spans, root)
+            prof["operators"] = tr.operators
+        prof.update({"total_s": qtrace.seconds(root), "spans": tr.spans,
+                     "counters": tr.counters})
+        qtrace.keep(prof)
+        return prof
+
+    def _run_stmt(self, stmt, key, lits, structural, stmt_idx, sql, tr):
+        self.db.buffer_manager.begin_statement(tr)
         txn = self._txn
         if isinstance(stmt, ast.SelectStmt):
             res = self._execute_select(stmt, key, lits, structural, stmt_idx, sql)
@@ -212,14 +253,6 @@ class Connection:
                              ast.CreateTableStmt, ast.DropStmt)) and \
                 self._txn is None:
             self.db.maybe_autocheckpoint()
-        if self.db.config.enable_profiling:
-            prof = self.last_profile if isinstance(stmt, ast.SelectStmt) and \
-                self.last_profile else {}
-            prof.update({
-                "statement": type(stmt).__name__,
-                "total_s": time.perf_counter() - t0,
-            })
-            self.last_profile = prof
         return res
 
     # ------------------------------------------------------------------
@@ -238,9 +271,13 @@ class Connection:
             tuple(sorted((s, repr(lits[s])) for s in slots)),
             getattr(self.db.catalog, "version", 0),
         )
-        with self.db.plan_cache_lock:
+        tr = self.executor.trace
+        lock = self.db.plan_cache_lock
+        with lock if tr is None else tr.timed(lock):
             hit = self.db.plan_cache.get(cache_key)
         if hit is not None:
+            if tr is not None:
+                tr.set(plan_cache_hit=1)
             return hit
         binder = Binder(self.db.catalog, self.db.config)
         plan = binder.bind_select(stmt)
@@ -251,41 +288,33 @@ class Connection:
             tuple(sorted((s, repr(lits[s])) for s in all_structural)),
             getattr(self.db.catalog, "version", 0),
         )
-        with self.db.plan_cache_lock:
+        with lock if tr is None else tr.timed(lock):
             self.db.template_slots[(key, stmt_idx)] = frozenset(all_structural)
             self.db.plan_cache[full_key] = plan
             if len(self.db.plan_cache) > 4096:
                 self.db.plan_cache.clear()
             if len(self.db.template_slots) > 8192:
                 self.db.template_slots.clear()
+        if tr is not None:
+            tr.set(plan_cache_hit=0)
         return plan
 
     def _execute_select(self, stmt, key, lits, structural, stmt_idx,
                         sql=None) -> QueryResult:
-        profiling = self.db.config.enable_profiling
-        t0 = time.perf_counter()
+        tr = self.executor.trace
+        sp = None if tr is None else tr.begin("plan")
         try:
             plan = self._plan_select(stmt, key, lits, structural, stmt_idx)
         except (BindError, CatalogException) as e:
             raise SQLError(str(e)) from e
-        t_plan = time.perf_counter()
-        if profiling:
-            self.executor.profile = {}
-        try:
-            mat = self.executor.execute(plan, lits)
-        finally:
-            if profiling:
-                op_profile = self.executor.profile
-                self.executor.profile = None
-        if profiling:
-            # QueryProfiler parity (src/main/query_profiler.cpp): per-phase
-            # timers + per-operator tree (QueryTreeToString)
-            self.last_profile = {
-                "statement": "SelectStmt",
-                "phases": {"plan_s": t_plan - t0,
-                           "execute_s": time.perf_counter() - t_plan},
-                "operators": _render_plan(plan, profile=op_profile),
-            }
+        if sp is not None:
+            tr.end(sp)
+            sp = tr.begin("execute")
+        mat = self.executor.execute(plan, lits)
+        if sp is not None:
+            tr.end(sp)
+            tr.operators = _render_plan(
+                plan, profile=qtrace.operator_profile(tr.spans, sp["id"]))
         res = QueryResult(mat.names, mat.types, mat.cols, mat.valids, mat.dicts)
         if self.db.config.query_verification_enabled:
             from adacom_tpu_torch.main.verification import (
@@ -754,19 +783,23 @@ class Connection:
             raise SQLError("EXPLAIN supports SELECT only")
         binder = Binder(self.db.catalog, self.db.config)
         plan = optimize(binder.bind_select(stmt.target), set())
-        profile = None
         if stmt.analyze:
-            # EXPLAIN ANALYZE: run the plan with per-operator timers
-            # (reference physical_explain_analyze.cpp + OperatorProfiler)
-            self.executor.profile = {}
+            # EXPLAIN ANALYZE: run the plan in operator spans (reference
+            # physical_explain_analyze.cpp + OperatorProfiler), of the
+            # statement's trace under profiling, else of a trace of its own
+            ex = self.executor
+            tr = ex.trace
+            if tr is None:
+                ex.trace = self._new_trace()
+            since = len(ex.trace.spans)
             try:
                 t0 = time.perf_counter()
-                self.executor.execute(plan, list(lits))
+                ex.execute(plan, list(lits))
                 total = time.perf_counter() - t0
+                text = _render_plan(plan, profile=qtrace.operator_profile(
+                    ex.trace.spans, since))
             finally:
-                profile = self.executor.profile
-                self.executor.profile = None
-            text = _render_plan(plan, profile=profile)
+                ex.trace = tr
             text += f"\nTotal Time: {total * 1e3:.3f} ms"
         else:
             text = _render_plan(plan)

@@ -54,7 +54,7 @@ class Database:
         self.path = path
         # engine event counters: the host scan records auto-index builds,
         # the mesh paths their distributed scan-aggregates and joins
-        self.dist_stats = {"scan_agg": 0, "join": 0, "topk": 0}
+        self.dist_stats = {"scan_agg": 0, "join": 0}
         self.config = config or DBConfig()
         if platform is not None:
             self.config.platform = platform

@@ -47,8 +47,10 @@ class BufferManager:
     def get_data_size(self) -> int:
         return self.data_size
 
-    def begin_statement(self) -> None:
-        with self._lock:
+    def begin_statement(self, trace=None) -> None:
+        """Number a new statement; `trace`, the statement's
+        StatementTrace under profiling, times the wait for the lock."""
+        with self._lock if trace is None else trace.timed(self._lock):
             self.statement += 1
 
     def charge_cache(self, delta: int) -> None:

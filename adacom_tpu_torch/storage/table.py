@@ -518,8 +518,11 @@ class Table:
                 col.unseal_last_partial()
             col.stage(normalized[c], validity.get(c) if validity else None)
 
-    def flush(self):
-        with self._append_lock:
+    def flush(self, trace=None):
+        """Seal staged appends into segments; ``trace``, as in
+        read_snapshot, times the wait for the append lock."""
+        lock = self._append_lock
+        with lock if trace is None else trace.timed(lock):
             for c in self.column_order:
                 self.columns[c].flush()
 
@@ -539,12 +542,16 @@ class Table:
     def delete_mask(self, i: int) -> Optional[np.ndarray]:
         return self._deletes.get(i)
 
-    def read_snapshot(self, token: Optional[int] = None) -> TableSnapshot:
+    def read_snapshot(self, token: Optional[int] = None,
+                      trace=None) -> TableSnapshot:
         """Pin a consistent scan view (see TableSnapshot). ``token`` is the
         reader's connection token for MVCC: while another connection's
         write transaction is in flight, the snapshot is clamped to the
-        committed watermark and carries the committed delete masks."""
-        with self._append_lock:
+        committed watermark and carries the committed delete masks.
+        ``trace``, the statement's StatementTrace under profiling, times
+        the wait for the append lock (a checkpoint holds it throughout)."""
+        lock = self._append_lock
+        with lock if trace is None else trace.timed(lock):
             self.flush_locked()
             if self.write_txn is not None and self.write_txn != token:
                 limit = self.committed_rows
