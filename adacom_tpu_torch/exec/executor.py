@@ -47,7 +47,7 @@ import torch
 from adacom_tpu_torch import types as tt
 from adacom_tpu_torch.ops import bitpack, fused_scan, grouped_scan
 from adacom_tpu_torch.sql import bound as b
-from adacom_tpu_torch.exec.expr import ExprCompiler, CompiledExpr, compute_dtype_of
+from adacom_tpu_torch.exec.expr import ExprCompiler, CompiledExpr, Lits, compute_dtype_of
 from adacom_tpu_torch.exec.device_scan import DeviceScan, declines
 from adacom_tpu_torch.exec.join import Join, _hash_join_pairs, _row_keys
 from adacom_tpu_torch.exec.mat import ExecError, Mat, _FallbackToDevice
@@ -82,15 +82,18 @@ class Executor(DeviceScan, Join):
 
     # ------------------------------------------------------------------
     def execute(self, plan: b.LogicalOp, lits: List[Any]) -> Mat:
-        self._prepare_subqueries(plan, lits)
-        return self._exec(plan, lits)
+        return self._exec(plan, self._prepare_subqueries(plan, lits))
 
-    def _prepare_subqueries(self, plan: b.LogicalOp, lits) -> None:
-        """Evaluate uncorrelated scalar/exists/in subqueries and stash their
-        results on the BSubquery nodes before compiled expressions run."""
+    def _prepare_subqueries(self, plan: b.LogicalOp, lits) -> List[Any]:
+        """Evaluate the plan's uncorrelated scalar/exists/in subqueries for
+        this execution and return `lits` with their results
+        (`exec.expr.Lits`), which the compiled expressions read. The plan
+        is shared by every connection through the plan cache, so nothing
+        of one execution is stored on it. A subquery's own plan may hold
+        subqueries: its execution evaluates them in turn."""
         has = getattr(plan, "_has_subqueries", None)
         if has is False:  # cached: plan contains none (point-lookup hot path)
-            return
+            return lits
         if has is None:
             plan._has_subqueries = any(
                 isinstance(sq, b.BSubquery)
@@ -99,28 +102,35 @@ class Executor(DeviceScan, Join):
                 for sq in b.expr_walk(e)
             )
             if not plan._has_subqueries:
-                return
+                return lits
+        out = Lits(lits)
+        tr = self.trace
         for node in b.walk(plan):
             for e in b.iter_node_exprs(node):
                 for sq in b.expr_walk(e):
                     if not isinstance(sq, b.BSubquery):
                         continue
+                    sp = None if tr is None else tr.begin("subquery")
                     mat = self.execute(sq.plan, lits)
                     if sq.kind == "exists":
                         hit = mat.nrows > 0
-                        sq.cached_value = np.asarray(not hit if sq.negated else hit)
+                        v = np.asarray(not hit if sq.negated else hit)
                     elif sq.kind == "scalar":
                         if mat.nrows == 0 or (
                             mat.valids[0] is not None and not mat.valids[0][0]
                         ):
-                            sq.cached_value = None
+                            v = None  # NULL
                         else:
-                            sq.cached_value = np.asarray(mat.cols[0][0])
+                            v = np.asarray(mat.cols[0][0])
                     else:  # 'in' not rewritten to a join: membership array
                         col = mat.cols[0]
                         if mat.valids[0] is not None:
                             col = col[mat.valids[0]]
-                        sq.cached_value = np.unique(col)
+                        v = np.unique(col)
+                    out.subqueries[id(sq)] = v
+                    if sp is not None:
+                        tr.end(sp, kind=sq.kind, rows=mat.nrows)
+        return out
 
     def _exec(self, node: b.LogicalOp, lits) -> Mat:
         tr = self.trace

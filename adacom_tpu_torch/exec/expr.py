@@ -215,6 +215,26 @@ def like_to_regex(pattern: str) -> str:
     return "^" + "".join(out) + "$"
 
 
+class Lits(list):
+    """The literals of one execution with the results of its uncorrelated
+    subqueries: `subqueries` maps id() of a BSubquery node of the plan to
+    its value (a 0-d array, None for a NULL scalar, a sorted array of an
+    IN list's members). `Executor._prepare_subqueries` makes one per
+    execution, so connections that share a cached plan never see each
+    other's results."""
+
+    def __init__(self, lits=()):
+        super().__init__(lits)
+        self.subqueries: dict = {}
+
+
+def subquery_value(lits, node: b.BSubquery):
+    """`node`'s result in this execution; None where it is NULL or was
+    not evaluated (a statement that runs no executor over its plan)."""
+    found = getattr(lits, "subqueries", None)
+    return None if found is None else found.get(id(node))
+
+
 class CompiledExpr:
     """fn(cols, args) -> (values, valid); prep(lits, ctx) -> dynamic args."""
 
@@ -436,33 +456,44 @@ class ExprCompiler:
                 dt = compute_dtype_of(e.ty)
 
                 def prep(lits):
-                    v = node.cached_value
+                    v = subquery_value(lits, node)
                     if v is None:
                         # NULL scalar result
                         return np.asarray(np.nan if np.dtype(dt).kind == "f" else 0, dtype=dt)
                     return np.asarray(v, dtype=dt)
 
                 k = self._add_input(prep)
-                is_null = e.kind == "scalar"
+                if e.kind == "exists":
+                    def fn(cols, args):
+                        return args[k], None
+                    return fn
+                # a Python bool, which the device tier passes as it is
+                kn = self._add_input(
+                    lambda lits: subquery_value(lits, node) is None)
 
                 def fn(cols, args):
-                    if is_null and node.cached_value is None:
+                    if args[kn]:
                         return args[k], _xp(args[k]).zeros((), np.bool_)
                     return args[k], None
                 return fn
 
             # 'in' used outside a top-level filter conjunct: membership via
-            # a sorted cached array + searchsorted
+            # a sorted array of the members + searchsorted
             opf = self._c(e.operand)
             neg = e.negated
 
+            def no_members(lits):
+                arr = subquery_value(lits, node)
+                return arr is None or len(arr) == 0
+
             def prep(lits):
-                arr = node.cached_value
-                if arr is None or len(arr) == 0:
+                if no_members(lits):
                     return np.zeros(1, dtype=compute_dtype_of(node.operand.ty))
-                return np.sort(np.asarray(arr))
+                return np.sort(np.asarray(subquery_value(lits, node)))
 
             k = self._add_input(prep)
+            # a Python bool, which the device tier passes as it is
+            ke = self._add_input(no_members)
 
             def fn(cols, args):
                 v, m = opf(cols, args)
@@ -470,7 +501,7 @@ class ExprCompiler:
                 xp = _xp(v)
                 idx = xp.clip(xp.searchsorted(arr, v), 0, arr.shape[0] - 1)
                 hit = arr[idx] == v
-                if node.cached_value is None or len(node.cached_value) == 0:
+                if args[ke]:
                     hit = xp.zeros_like(hit)
                 return (~hit if neg else hit), m
             return fn

@@ -125,6 +125,7 @@ class Join:
     def _exec_join_sides(self, node: b.LogicalJoin, lits,
                          right: Optional[Mat] = None) -> Mat:
         left = None
+        route = "hash" if node.conditions else "cross"
         if node.conditions and right is None:
             # index join: probe the indexed base table with the other
             # side's keys instead of scanning it (whichever side the
@@ -132,10 +133,14 @@ class Join:
             if self._ij_eligible(node, "right"):
                 left = self._exec(node.left, lits)
                 right = self._index_join_reduce(node, left, "right", lits)
+                if right is not None:
+                    route = "index"
             elif node.join_type == "inner" and \
                     self._ij_eligible(node, "left"):
                 right = self._exec(node.right, lits)
                 left = self._index_join_reduce(node, right, "left", lits)
+                if left is not None:
+                    route = "index"
         if left is None and self._streaming_join_eligible(node):
             # morsel-streaming probe pipeline (reference PipelineExecutor:
             # source -> operators -> sink in chunks): build once from the
@@ -149,6 +154,27 @@ class Join:
             left = self._exec(node.left, lits)
         if right is None:
             right = self._exec(node.right, lits)
+        # the build side's keys, then the native table built from them and
+        # probed in one call (_hash_join_pairs), and the output's gather
+        tr = self.trace
+        sp = None if tr is None else tr.begin("join.build")
+        rkeys = rok = None
+        if node.conditions:
+            rkeys, rok = self._join_keys([re_ for _l, re_ in node.conditions],
+                                         right, lits)
+        if sp is not None:
+            tr.end(sp, route=route, build_rows=right.nrows)
+            sp = tr.begin("join.probe")
+        out, pairs = self._join_output(node, left, right, rkeys, rok, lits)
+        if sp is not None:
+            tr.end(sp, route=route, probe_rows=left.nrows, matched=pairs)
+        return out
+
+    def _join_output(self, node: b.LogicalJoin, left: Mat, right: Mat,
+                     rkeys, rok, lits):
+        """(the join's rows, its matched pairs) of the materialized sides:
+        a cross product without conditions, else the hash join on the
+        build side's keys `rkeys`/`rok`."""
         jt = node.join_type
 
         if not node.conditions:
@@ -159,8 +185,6 @@ class Join:
         else:
             lkeys, lok = self._join_keys([le for le, _r in node.conditions],
                                          left, lits)
-            rkeys, rok = self._join_keys([re_ for _l, re_ in node.conditions],
-                                         right, lits)
             li, ri = _hash_join_pairs(lkeys, rkeys, self.config, lok, rok,
                                       db=self.db)
 
@@ -180,7 +204,7 @@ class Join:
             out = left.take(np.nonzero(matched if jt == "semi"
                                        else ~matched)[0])
             out.names = list(node.names)
-            return out
+            return out, len(li)
 
         if jt in ("left", "full"):
             matched = np.zeros(left.nrows, dtype=bool)
@@ -251,7 +275,7 @@ class Join:
             list(node.names), list(node.types),
             getattr(node, "dicts", [None] * len(node.names)),
             lcols + rcols, lvalids + rvalids,
-        )
+        ), len(li)
 
     def _residual_mask(self, node, left: Mat, right: Mat, li, ri, lits):
         """Evaluate the join residual over candidate pairs (li, ri); returns
@@ -291,6 +315,15 @@ class Join:
         probe; returns (rkeys, exact, ht, rsel) or None (budget / native).
         rsel maps the table's rows to right's rows when some build key is
         NULL (those rows are left out), else it is None."""
+        tr = self.trace
+        sp = None if tr is None else tr.begin("join.build")
+        try:
+            return self._build_join_table(node, right, lits)
+        finally:
+            if sp is not None:
+                tr.end(sp, route="streamed", build_rows=right.nrows)
+
+    def _build_join_table(self, node: b.LogicalJoin, right: Mat, lits):
         rkeys, rok = self._join_keys([re_ for _le, re_ in node.conditions],
                                      right, lits)
         rsel = None
@@ -362,12 +395,15 @@ class Join:
                                           list(dicts))
             li, ri = self._probe(built, lexprs, chunk, lits)
             if jt == "inner":
-                return chunk.take(li), ri
+                return chunk.take(li), ri, chunk.nrows, len(li)
             matched = np.zeros(chunk.nrows, dtype=bool)
             matched[li] = True
             keep = np.nonzero(matched if jt == "semi" else ~matched)[0]
-            return chunk.take(keep), None
+            return chunk.take(keep), None, chunk.nrows, len(li)
 
+        # the probe span holds the morsels' scans, which run on the pool
+        tr = self.trace
+        sp = None if tr is None else tr.begin("join.probe")
         try:
             results = TaskScheduler.get().map_segments(
                 probe_morsel, candidates, threads=self.config.threads)
@@ -375,9 +411,14 @@ class Join:
             return None
         finally:
             ht.close()
+            if sp is not None:
+                tr.end(sp, route="streamed")
+        if sp is not None:
+            tr.end(sp, probe_rows=sum(r[2] for r in results),
+                   matched=sum(r[3] for r in results))
         self.db.dist_stats["streamed_join"] = \
             self.db.dist_stats.get("streamed_join", 0) + 1
-        lmats = [m for m, _ri in results]
+        lmats = [r[0] for r in results]
         lcols = [
             np.concatenate([m.cols[ci] for m in lmats]) if lmats else
             np.empty(0, compute_dtype_of(get.types[ci]))
@@ -395,7 +436,7 @@ class Join:
         if jt in ("semi", "anti"):
             return Mat(list(node.names), list(node.types), dicts_j, lcols,
                        lvalids)
-        ri_all = (np.concatenate([ri for _m, ri in results])
+        ri_all = (np.concatenate([r[1] for r in results])
                   if results else np.zeros(0, np.int64))
         rcols = [_gather_rows(c, ri_all) for c in right.cols]
         rvalids = [None if v is None else _gather_rows(v, ri_all)
@@ -450,6 +491,8 @@ class Join:
         idx = get.table.index_on_columns(cols)
         if idx is None:
             return None
+        tr = self.trace
+        sp = None if tr is None else tr.begin("join.probe")
         probes, pok = self._join_keys(
             [le if side == "right" else re_ for le, re_ in node.conditions],
             probe_mat, lits)
@@ -503,6 +546,9 @@ class Join:
         dicts = getattr(get, "dicts", [None] * len(get.names))
         self.db.dist_stats["index_join"] = \
             self.db.dist_stats.get("index_join", 0) + 1
+        if sp is not None:
+            tr.end(sp, route="index", probe_rows=len(probes[0]),
+                   matched=sum(seg_rows))
         return Mat(list(get.names), list(get.types), list(dicts),
                    cols_np, valids_np)
 

@@ -142,16 +142,16 @@ class BSubquery(BExpr):
 
     kind='scalar' -> first row/col value; 'exists' -> row_count > 0;
     'in' -> membership of `operand` in the subplan's first column (rewritten
-    to a semi/anti join by the optimizer). Uncorrelated scalar/exists
-    subqueries are evaluated per execution by the executor, which stores the
-    result in `cached_value` before compiled expressions run. `correlated`
-    subplans contain BOuterCol references and are decorrelated into joins by
-    the optimizer (reference: flatten_dependent_join.cpp)."""
+    to a semi/anti join by the optimizer). Uncorrelated subqueries are
+    evaluated once per execution by the executor, which hands their results
+    to the compiled expressions beside the literals (`exec.expr.Lits`); the
+    node holds none, since cached plans are shared by every connection.
+    `correlated` subplans contain BOuterCol references and are decorrelated
+    into joins by the optimizer (reference: flatten_dependent_join.cpp)."""
     plan: Any = None  # LogicalOp
     kind: str = "scalar"
     operand: Optional[BExpr] = None
     negated: bool = False
-    cached_value: Any = None
     correlated: bool = False
 
 

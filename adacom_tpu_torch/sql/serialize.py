@@ -1,6 +1,6 @@
 """Logical-plan (de)serialization to JSON-safe structures (port of
 adacom_tpu/sql/serialize.py; the same SQL gives the same JSON in both
-packages).
+packages, but for BSubquery's `cached_value`, below).
 
 Parity target: the reference's plan serializer used by the `deserialized`
 statement verifier (src/verification/deserialized_statement_verifier.cpp
@@ -21,8 +21,11 @@ encodings:
                            {"__dict": ["inline", [strings...]]}
 - np.ndarray (LUTs)     -> {"__nd": [dtype, [values...]]}
 - tuples                -> {"__tuple": [...]}
-- BSubquery.cached_value is runtime state and serializes as None (the
-  executor recomputes it per execution).
+A plan holds no runtime state: the executor evaluates subqueries per
+execution. The JAX package's BSubquery still carries `cached_value`, so
+its JSON for a plan with a subquery has that one key more (always null);
+deserialization ignores a key that no field takes, so such a payload, and
+one this package wrote before it dropped the field, still loads.
 The side attribute `dicts` (output-column dictionaries) rides along when
 present. `json.dumps(serialize_plan(p))` round-trips."""
 
@@ -109,9 +112,6 @@ def _enc(v: Any, idx: _DictIndex):
                 out["table"] = {"__table": v.table_name} if source is None \
                     else {"__table_fn": [source[0], list(source[1]),
                                          v.table_name]}
-                continue
-            if isinstance(v, b.BSubquery) and f.name == "cached_value":
-                out["cached_value"] = None
                 continue
             if isinstance(v, b.LogicalJoin) and f.name == "null_aware" \
                     and not fv:

@@ -11,7 +11,7 @@ A span is a dict:
 - `name`: one of the fixed names that README.md lists (`query`, `plan`,
   `execute`, `op.<Operator>`, `scan.snapshot`, `scan.pools`, `scan.stack`,
   `scan.decode`, `scan.filter`, `scan.host`, `agg.partials`, `agg.pull`,
-  `agg.finish`, `agg.fused`);
+  `agg.finish`, `agg.fused`, `subquery`, `join.build`, `join.probe`);
 - `id`, `parent`: its index in the statement's spans, and the index of the
   span that was open when it began (None for the statement's root);
 - `query_id`: the connection's token and the statement's number on the

@@ -300,3 +300,134 @@ def test_concurrent_connections_keep_their_own_spans(con):
 
 def test_dist_stats_hold_no_dead_counter(con):
     assert "topk" not in con.db.dist_stats
+
+
+# ---------------------------------------------------------------- subqueries and joins
+SUBQUERIES = {
+    "scalar": ("SELECT count(*) FROM l WHERE i > (SELECT avg(i) FROM l)",
+               "SELECT 1"),
+    "exists": ("SELECT count(*) FROM l WHERE EXISTS (SELECT g FROM l WHERE g = 3)",
+               "SELECT count(*) FROM l WHERE g = 3"),
+    "in": ("SELECT count(*) FROM l WHERE i < 0 OR g IN (SELECT g FROM l WHERE i > 500)",
+           "SELECT count(*) FROM l WHERE i > 500"),
+}
+
+
+@pytest.mark.parametrize("kind", list(SUBQUERIES))
+def test_subquery_span_per_evaluated_subquery(con, kind):
+    sql, rows_sql = SUBQUERIES[kind]
+    (want_rows,), = con.query(rows_sql).fetchall()
+    con.query("PRAGMA enable_profiling")
+    con.query(sql).fetchall()
+    prof = con.last_profile
+    sq = _one(prof, "subquery")
+    assert sq["counts"] == {"kind": kind, "rows": want_rows}
+    assert sq["parent"] == _one(prof, "execute")["id"]
+    # the subquery's operators run inside its span, before the plan's
+    inner = [sp for sp in prof["spans"] if sp["parent"] == sq["id"]]
+    assert inner and all(sp["name"].startswith("op.") for sp in inner)
+    assert all(sp["end_ns"] <= sq["end_ns"] for sp in inner)
+
+
+def test_nested_subqueries_nest_their_spans(con):
+    con.query("PRAGMA enable_profiling")
+    con.query("SELECT count(*) FROM l WHERE i > (SELECT avg(i) FROM l WHERE "
+              "i < (SELECT max(i) FROM l WHERE g = 2))").fetchall()
+    spans = con.last_profile["spans"]
+    outer, inner = [sp for sp in spans if sp["name"] == "subquery"]
+    assert outer["parent"] == _one(con.last_profile, "execute")["id"]
+    up = spans[inner["parent"]]
+    while up["name"] != "subquery":
+        up = spans[up["parent"]]
+    assert up is outer
+
+
+@pytest.fixture
+def supp(con):
+    """A supplier-like table beside l: keys 1..3000, each with a name."""
+    con.query("CREATE TABLE supp(sk BIGINT, sname VARCHAR)")
+    app = con.appender("supp")
+    app.append_columns({"sk": np.arange(1, 3001),
+                        "sname": np.array([f"S{j}" for j in range(1, 3001)], dtype=object)})
+    app.close()
+    return con
+
+
+JOINS = {
+    # Q15's shape: an aggregate joined with a table, then filtered by a
+    # scalar subquery over the same aggregate
+    "hash": ("WITH r AS (SELECT k, sum(i) AS t FROM l GROUP BY k) "
+             "SELECT sk, sname, t FROM r JOIN supp ON sk = k "
+             "WHERE t = (SELECT max(t) FROM r) ORDER BY sk"),
+    "streamed": "SELECT l.i, supp.sname FROM l JOIN supp ON l.k = supp.sk WHERE l.g = 1",
+    "cross": "SELECT a.sk, b.sk FROM supp a, supp b WHERE a.sk < 3 AND b.sk < 4",
+}
+
+
+@pytest.mark.parametrize("route", list(JOINS))
+def test_join_build_and_probe_spans(supp, route):
+    con = supp
+    sql = JOINS[route]
+    want = con.query(sql).fetchall()
+    con.query("PRAGMA enable_profiling")
+    assert con.query(sql).fetchall() == want
+    prof = con.last_profile
+    build, probe = _one(prof, "join.build"), _one(prof, "join.probe")
+    assert build["counts"]["route"] == probe["counts"]["route"] == route
+    join = _one(prof, "op.Join")
+    assert build["parent"] == probe["parent"] == join["id"]
+    assert build["end_ns"] <= probe["start_ns"]
+    # the join's own work, not its sides' operators
+    assert not [sp for sp in prof["spans"] if sp["parent"] in (build["id"], probe["id"])
+                and sp["name"].startswith("op.")]
+    if route == "cross":
+        assert build["counts"]["build_rows"] == 3 and probe["counts"]["probe_rows"] == 2
+    if route == "hash":
+        # Q15's filter on the subquery keeps one of the joined rows
+        assert probe["counts"]["matched"] == join["counts"]["rows"] > len(want) == 1
+        assert probe["counts"]["probe_rows"] + build["counts"]["build_rows"] > 2 * len(want)
+    elif route == "cross":
+        assert probe["counts"]["matched"] == join["counts"]["rows"] == len(want) == 6
+    else:
+        assert probe["counts"]["matched"] == len(want)
+        assert probe["counts"]["probe_rows"] > 0 and build["counts"]["build_rows"] > 0
+
+
+def test_index_join_records_its_lookup(supp):
+    con = supp
+    con.query("CREATE INDEX supp_sk ON supp(sk)")
+    sql = "SELECT l.i, supp.sname FROM l JOIN supp ON l.k = supp.sk WHERE l.i = 5 AND l.g = 1"
+    want = con.query(sql).fetchall()
+    con.query("PRAGMA enable_profiling")
+    assert con.query(sql).fetchall() == want
+    spans = [sp for sp in con.last_profile["spans"] if sp["name"].startswith("join.")]
+    assert {sp["counts"]["route"] for sp in spans} == {"index"}
+    lookup = spans[0]
+    assert lookup["name"] == "join.probe" and lookup["counts"]["matched"] == len(want)
+    assert [sp["name"] for sp in spans[1:]] == ["join.build", "join.probe"]
+    assert spans[-1]["counts"]["matched"] == len(want)
+
+
+def test_join_pipeline_records_its_builds(supp):
+    con = supp
+    con.query("PRAGMA enable_profiling")
+    con.query("SELECT supp.sname, count(*) FROM l JOIN supp ON l.k = supp.sk "
+              "GROUP BY supp.sname ORDER BY 1 LIMIT 3").fetchall()
+    build = _one(con.last_profile, "join.build")
+    assert build["counts"] == {"route": "streamed", "build_rows": 3000}
+    assert "join.probe" not in _names(con.last_profile)
+
+
+def test_profiling_off_subqueries_and_joins_make_no_span(supp, monkeypatch):
+    con = supp
+    sqls = [JOINS["hash"], JOINS["streamed"], JOINS["cross"]] + \
+        [sql for sql, _rows in SUBQUERIES.values()]
+    want = [con.query(sql).fetchall() for sql in sqls]
+
+    def no_clock():
+        raise RuntimeError("a clock was read")
+
+    monkeypatch.setattr(qtrace, "clock", no_clock)
+    monkeypatch.setattr(qtrace, "cpu_clock", no_clock)
+    assert [con.query(sql).fetchall() for sql in sqls] == want
+    assert con.last_profile is None and con.executor.trace is None
