@@ -141,6 +141,13 @@ def _load_kernels() -> ctypes.CDLL:
     lib.adacom_unpack.restype = ci
     lib.adacom_unpack_threads.argtypes = []
     lib.adacom_unpack_threads.restype = ci
+    lib.adacom_grouped_accumulate.argtypes = [vp, vp, ll, ll, ci, vp, vp, vp,
+                                              vp, ci, vp]
+    lib.adacom_grouped_accumulate.restype = ci
+    for name in ("adacom_accumulate_threads", "adacom_accumulate_max_specs",
+                 "adacom_accumulate_smem_bytes"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ci
     return lib
 
 

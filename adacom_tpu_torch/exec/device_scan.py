@@ -2,7 +2,9 @@
 compacted scan) over pools of segments, in PyTorch tensor ops on the
 database's device, but for the decode of a succinct column, which is one
 launch of the kernel csrc/unpack.cu per column of a chunk on a card
-(ops/segcodec.py decode_stack).
+(ops/segcodec.py decode_stack), and a dense GROUP BY's accumulate, one
+launch of csrc/grouped_accumulate.cu per chunk on a card
+(ops/agg.py grouped_accumulate).
 
 Port of the JAX package's generic device tier (adacom_tpu/exec/
 executor.py: seg_arg_count / make_seg_decoder :73-111, _scan_batches
@@ -267,11 +269,16 @@ def pool_cache(table) -> PoolCache:
 # ======================================================================
 
 
-def _agg_partials(cols, mask, params, spec_entries, group_fns, dense):
-    """One chunk's partial state per spec: (domain,) tensors when grouped
-    over a dense domain, 0-d tensors otherwise."""
+def _agg_partials(cols, mask, params, spec_entries, group_fns, dense,
+                  partials=None):
+    """A chunk's partial state per spec merged into `partials`, those of the
+    chunks before it (None before the first): (partials, (kernel, shared)).
+    Grouped over a dense domain the chunk's kept rows are added into
+    (domain,) accumulators in place, allocated at the first chunk
+    (agg_ops.grouped_accumulate; kernel and shared say whether the kernel
+    ran, and in its shared-memory regime). Ungrouped, the chunk's 0-d
+    partials merge into new ones."""
     n = mask.shape[0]
-    dev = mask.device
     if dense is not None:
         mins, strides, sizes, domain, nullable = dense
         keys = []
@@ -285,20 +292,16 @@ def _agg_partials(cols, mask, params, spec_entries, group_fns, dense):
             keys.append(k)
         gid = agg_ops.dense_group_ids(keys, mins, strides, domain)
         # per-spec NULL arguments become neutral values, so the one filter
-        # mask serves every scatter
-        outs = []
+        # mask serves every spec
+        specs = []
         for kind, argf, acc in spec_entries:
             if kind == "count":
-                outs.append(agg_ops.grouped_partial(
-                    gid, mask, [("count", None, acc)], domain)[0])
+                specs.append(("count", None, acc))
                 continue
             v, vm = argf(cols, params)
             if kind == "count_arg":
-                ones = torch.ones(n, dtype=torch.int64, device=dev)
-                if vm is not None:
-                    ones = torch.where(vm, ones, 0)
-                outs.append(agg_ops.grouped_partial(
-                    gid, mask, [("sum", ones, np.int64)], domain)[0])
+                specs.append(("count", None, acc) if vm is None
+                             else ("sum", _rows(vm, n), acc))
                 continue
             v = _rows(v, n)
             if vm is not None:
@@ -311,9 +314,11 @@ def _agg_partials(cols, mask, params, spec_entries, group_fns, dense):
                     v = torch.where(vm, v, agg_ops._max_sentinel(acc))
                 elif kind == "max":
                     v = torch.where(vm, v, agg_ops._min_sentinel(acc))
-            outs.append(agg_ops.grouped_partial(
-                gid, mask, [(kind, v, acc)], domain)[0])
-        return tuple(outs)
+            specs.append((kind, v, acc))
+        if partials is None:
+            partials = agg_ops.new_accumulators(
+                [(kind, acc) for kind, _v, acc in specs], domain, mask.device)
+        return partials, agg_ops.grouped_accumulate(partials, gid, mask, specs)
 
     outs = []
     for kind, argf, acc in spec_entries:
@@ -339,7 +344,7 @@ def _agg_partials(cols, mask, params, spec_entries, group_fns, dense):
                                            agg_ops._min_sentinel(acc)))
         else:
             raise ValueError(kind)
-    return tuple(outs)
+    return _merged(spec_entries, partials, outs), (0, 0)
 
 
 def _merged(spec_entries, partials, batch) -> list:
@@ -381,27 +386,20 @@ def _merge_kind(kind: str) -> str:
 
 def _init_empty_partials(spec_entries, dense):
     """The partials of a scan that read no segment."""
+    if dense is not None:
+        return [a.numpy() for a in agg_ops.new_accumulators(
+            [("count" if kind == "count_arg" else kind, acc)
+             for kind, _f, acc in spec_entries], dense[3], "cpu")]
     outs = []
-    domain = dense[3] if dense is not None else None
     for kind, _, acc in spec_entries:
-        if dense is not None:
-            if kind in ("count", "count_arg"):
-                outs.append(np.zeros(domain, np.int64))
-            elif kind in ("sum", "sumsq"):
-                outs.append(np.zeros(domain, acc))
-            elif kind == "min":
-                outs.append(np.full(domain, agg_ops._max_sentinel(acc), acc))
-            else:
-                outs.append(np.full(domain, agg_ops._min_sentinel(acc), acc))
+        if kind in ("count", "count_arg"):
+            outs.append(np.int64(0))
+        elif kind in ("sum", "sumsq"):
+            outs.append(np.zeros((), acc))
+        elif kind == "min":
+            outs.append(np.asarray(agg_ops._max_sentinel(acc), acc))
         else:
-            if kind in ("count", "count_arg"):
-                outs.append(np.int64(0))
-            elif kind in ("sum", "sumsq"):
-                outs.append(np.zeros((), acc))
-            elif kind == "min":
-                outs.append(np.asarray(agg_ops._max_sentinel(acc), acc))
-            else:
-                outs.append(np.asarray(agg_ops._min_sentinel(acc), acc))
+            outs.append(np.asarray(agg_ops._min_sentinel(acc), acc))
     return outs
 
 
@@ -579,7 +577,8 @@ class DeviceScan:
     def _scan_agg_partials(self, get, lits, spec_entries, group_fns, dense,
                            params):
         """The scan's partials, every decoded chunk's (pools in chunks)
-        merged on the device, or None where no segment is read. With a
+        merged on the device (a dense GROUP BY's added into one set of
+        accumulators in place), or None where no segment is read. With a
         mesh, each pool of segments without a delete mask runs distributed
         instead and gives its merged partials once (the JAX package sends
         segments with a delete mask down its single-device path)."""
@@ -599,10 +598,11 @@ class DeviceScan:
             for _ids, _counts, _n_pad, mask, cols in self._pool_chunks(
                     get.table, key, entries, dtypes, filt, fparams):
                 sp = None if tr is None else tr.begin("agg.partials")
-                partials = _merged(spec_entries, partials, _agg_partials(
-                    cols, mask, params, spec_entries, group_fns, dense))
+                partials, (kernel, shared) = _agg_partials(
+                    cols, mask, params, spec_entries, group_fns, dense,
+                    partials)
                 if sp is not None:
-                    tr.end(sp)
+                    tr.end(sp, scatter_kernel=kernel, scatter_smem=shared)
         return partials
 
     def _distributed_pool(self, table, key, entries, dtypes, filt, fparams,
@@ -642,8 +642,8 @@ class DeviceScan:
                 mask, cols = _chunk(metas, dtypes, n_pad, filt, fparams_s,
                                     counts_s[s0:s0 + step],
                                     [a[s0:s0 + step] for a in args_s])
-                out = _merged(spec_entries, out, _agg_partials(
-                    cols, mask, params_s, spec_entries, group_fns, dense))
+                out = _agg_partials(cols, mask, params_s, spec_entries,
+                                    group_fns, dense, out)[0]
             return out
 
         shards = coll.unzip(coll.shard_map(mesh, body, list(stacked),
@@ -659,7 +659,9 @@ class DeviceScan:
     def _aggregate_generic(self, node, get, lits, specs, finishers, dense):
         """The generic branch of _aggregate_over_scan: group keys and
         aggregate arguments compile once, every chunk's partials merge on
-        the device, and one pull per dtype brings them to the host finish."""
+        the device (a dense GROUP BY's chunks add into the scan's
+        accumulators in place), and one pull per dtype brings them to the
+        host finish."""
         global RUNS
         RUNS += 1
         tr = self.trace

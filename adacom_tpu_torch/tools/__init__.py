@@ -19,16 +19,18 @@ def device_name(platform: str) -> str:
 
 
 def launch_counts() -> dict:
-    """The device tiers' counters: B1/B2/B3 kernel launches and the decode
-    kernel's (a CPU run takes their plain versions, which count nothing),
-    and the generic device path's runs."""
+    """The device tiers' counters: B1/B2/B3 kernel launches, the decode
+    kernel's and the grouped-accumulate kernel's (`scatter`; a CPU run
+    takes their plain versions, which count nothing), and the generic
+    device path's runs."""
     from adacom_tpu_torch.exec import device_scan
-    from adacom_tpu_torch.ops import fused_scan, grouped_scan, segcodec
+    from adacom_tpu_torch.ops import agg, fused_scan, grouped_scan, segcodec
 
     return {"B1": fused_scan.KERNEL_LAUNCHES,
             "B2": grouped_scan.GROUPED_LAUNCHES,
             "B3": grouped_scan.MULTI_LAUNCHES,
             "decode": segcodec.DECODE_LAUNCHES,
+            "scatter": agg.SCATTER_LAUNCHES,
             "device_scan": device_scan.RUNS}
 
 

@@ -31,8 +31,8 @@ def run(scale: float, nruns: int = 3, platform: str = "cuda",
     query qid; each cold answer must equal them, and each hot answer the
     cold one, else AssertionError. Returns {"rows", "size", "load_s",
     "queries": {qid: {"cold_ms", "hot_ms" (list), "median_ms",
-    "launches": {"B1", "B2", "B3", "decode", "device_scan"} of the cold
-    run}}}."""
+    "launches": {"B1", "B2", "B3", "decode", "scatter", "device_scan"} of
+    the cold run}}}."""
     import adacom_tpu_torch as att
     from adacom_tpu_torch.bench import clickbench as cb
 

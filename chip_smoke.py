@@ -54,9 +54,17 @@ imports nothing of JAX. Phases, one line each, any failure exits non-zero:
    l_suppkey, l_extendedprice, l_discount and l_shipdate at the widths
    compaction gives them at SF 10), its wrapper and its plain version,
    with its bound (words read plus values written). No single PyTorch
-   call unpacks the vertical-lane layout, so `library_ms` is null;
-8. the generic device path (PyTorch tensor ops around the decode kernel,
-   which must launch):
+   call unpacks the vertical-lane layout, so `library_ms` is null. Beside
+   it the grouped-accumulate kernel (csrc/grouped_accumulate.cu) alone at
+   the revenue cell's chunk (2^24 rows, 100,000 groups, 1 row in 28 kept;
+   an int64 sum and two counts) and at t4's 1,000 groups with every row
+   kept (its shared-memory regime), held bit for bit against its plain
+   version first, with its wrapper, its plain version, `index_add_` of
+   the sum and the count as the generic path ran them before
+   (`library_ms`) and its bound (every row's mask byte, and the 32-byte
+   sectors of group ids and values that hold a kept row);
+8. the generic device path (PyTorch tensor ops around the decode and
+   grouped-accumulate kernels, which must launch):
    a. every codec (constant, rle, delta, dictionary, alp) decodes on the
       card to the host values bit for bit at 1, 4,097, 65,535 and 65,536
       rows (whole segment, gather, a pool of two);
@@ -860,6 +868,101 @@ def time_decode(dev, read_gbps, ms_iters=50, plain_iters=5):
     return ms, plain, bound_ms(nbytes)
 
 
+# the revenue cell's chunk for the grouped accumulate (CHUNK_ROWS rows over
+# 100,000 supplier groups, the quarter keeping about 1 ship date in 28),
+# then t4's 1,000 groups with every row kept (the shared-memory regime)
+ACCUMULATE_SHAPES = (("revenue", 1 << 24, 100_000, 28),
+                     ("t4", 1 << 24, 1000, 1))
+
+
+def accumulate_bytes(mask, value_specs):
+    """The least bytes the grouped-accumulate kernel moves for a chunk:
+    every row's mask byte, and for the group ids and each of value_specs
+    value arrays (8 B a row) the 32-byte sectors (four rows) that hold a
+    kept row. The accumulators, resident in L2, are not counted."""
+    import torch
+
+    n = int(mask.shape[0])
+    quads = torch.cat([mask, mask.new_zeros((-n) % 4)]).view(-1, 4)
+    return n + 32 * int(quads.any(1).sum()) * (1 + value_specs)
+
+
+def time_accumulate(dev, ms_iters=50, plain_iters=5):
+    """Phase 7, beside the decode: the grouped-accumulate kernel alone (one
+    launch, pointers prepared, CUDA events), through grouped_accumulate,
+    its plain version and the `index_add_` pair the generic path ran
+    before (the sum and the count over a spare slot for rejected rows), at
+    each of ACCUMULATE_SHAPES with the revenue aggregate's specs (an int64
+    sum and two counts); the kernel's accumulators equal the plain
+    version's first. Returns (kernel ms, plain ms, bound ms, library ms) at
+    the revenue chunk."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from adacom_tpu_torch import build
+    from adacom_tpu_torch.ops import agg
+
+    lib = build.kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(0xACC)
+    out = None
+    for label, n, domain, keep in ACCUMULATE_SHAPES:
+        t0 = time.perf_counter()
+        gid = torch.randint(0, domain, (n,), generator=gen, device=dev)
+        mask = torch.randint(0, keep, (n,), generator=gen, device=dev) == 0
+        # revenue-sized values: cents of price times (100 - discount)
+        v = torch.randint(90_100, 10_494_951, (n,), generator=gen,
+                          device=dev) * 95
+        specs = [("sum", v, np.int64), ("count", None, np.int64),
+                 ("count", None, np.int64)]
+        kinds = [(k, a) for k, _v, a in specs]
+        accs = agg.new_accumulators(kinds, domain, dev)
+        want = agg.new_accumulators(kinds, domain, dev)
+        _kernel, shared = agg.grouped_accumulate(accs, gid, mask, specs)
+        agg.grouped_accumulate_reference(want, gid, mask, specs)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(accs, want)),
+              f"accumulate {label}: kernel != plain")
+        ops = (ctypes.c_int * 3)(2, 0, 0)
+        vals = (ctypes.c_void_p * 3)(v.data_ptr(), None, None)
+        strides = (ctypes.c_longlong * 3)(1, 0, 0)
+        ptrs = (ctypes.c_void_p * 3)(*[a.data_ptr() for a in accs])
+
+        def launch():
+            rc = lib.adacom_grouped_accumulate(
+                gid.data_ptr(), mask.data_ptr(), n, domain, 3, ops, vals,
+                strides, ptrs, shared, stream)
+            check(rc == 0, f"accumulate launch failed: CUDA error {rc}")
+
+        ms = cuda_ms(launch, ms_iters)
+        wrapper = cuda_ms(lambda: agg.grouped_accumulate(accs, gid, mask,
+                                                         specs), ms_iters)
+        plain = cuda_ms(lambda: agg.grouped_accumulate_reference(
+            want, gid, mask, specs), plain_iters)
+        safe = torch.where(mask, gid, domain)
+        ones = torch.ones_like(safe)
+        pair = [torch.zeros(domain + 1, dtype=torch.int64, device=dev)
+                for _ in range(2)]
+        library = cuda_ms(lambda: (pair[0].index_add_(0, safe, v),
+                                   pair[1].index_add_(0, safe, ones)),
+                          plain_iters)
+        kept = int(mask.sum())
+        nbytes = accumulate_bytes(mask, 1)
+        phase(f"timing decode: accumulate {label}", t0,
+              f"{n} rows, {domain} groups, {kept} kept, "
+              f"{'shared-memory' if shared else 'global'} regime, kernel == "
+              f"plain bit for bit: kernel {ms:.4f} ms; "
+              f"{_bound_line(nbytes, ms)}; wrapper {wrapper:.4f} ms; "
+              f"plain version {plain:.3f} ms; index_add_ pair (library) "
+              f"{library:.3f} ms")
+        if out is None:
+            out = (ms, plain, bound_ms(nbytes), library)
+        del gid, mask, v, accs, want, safe, ones, pair
+    return out
+
+
 class Recorder:
     """Wraps a module-level entry point and keeps the arguments of each
     call while on (the call itself goes through unchanged)."""
@@ -1367,6 +1470,9 @@ def ptxas_entries(log):
         m = re.search(r"unpack_kernelI([xib])E", name)
         if m:
             name = f"unpack<{dict(x='int64', i='int32', b='bool')[m.group(1)]}>"
+        m = re.search(r"accumulate_kernelILb([01])E", name)
+        if m:
+            name = f"accumulate<{'shared' if m.group(1) == '1' else 'global'}>"
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
         out.append((name, int(regs.group(1)) if regs else -1,
@@ -2701,19 +2807,19 @@ CB_HOT = 1
 
 def _zero_counts():
     from adacom_tpu_torch.exec import device_scan
-    from adacom_tpu_torch.ops import fused_scan, grouped_scan, segcodec
+    from adacom_tpu_torch.ops import agg, fused_scan, grouped_scan, segcodec
 
     fused_scan.KERNEL_LAUNCHES = grouped_scan.GROUPED_LAUNCHES = 0
     grouped_scan.MULTI_LAUNCHES = device_scan.RUNS = 0
-    segcodec.DECODE_LAUNCHES = 0
+    segcodec.DECODE_LAUNCHES = agg.SCATTER_LAUNCHES = 0
 
 
 def _counts_line():
-    from adacom_tpu_torch.ops import segcodec
+    from adacom_tpu_torch.ops import agg, segcodec
 
     b1, b2, b3, runs = _launches()
     return (f"B1 {b1}, B2 {b2}, B3 {b3}, decode {segcodec.DECODE_LAUNCHES}, "
-            f"device_scan {runs}")
+            f"scatter {agg.SCATTER_LAUNCHES}, device_scan {runs}")
 
 
 def roofline_step(dev):
@@ -3496,7 +3602,7 @@ def main() -> int:
 
     import adacom_tpu_torch as att
     from adacom_tpu_torch import build, native
-    from adacom_tpu_torch.ops import fused_scan, grouped_scan, segcodec
+    from adacom_tpu_torch.ops import agg, fused_scan, grouped_scan, segcodec
 
     # ---- 1. device ------------------------------------------------------
     t0 = time.perf_counter()
@@ -3526,12 +3632,13 @@ def main() -> int:
             entries += ptxas_entries(f.read())
     regs = [e[1] for e in entries]
     grouped = [f"{name} {r} regs {sp} B spilled" for name, r, sp in entries
-               if name.startswith(("grouped_scan", "unpack"))]
+               if name.startswith(("grouped_scan", "unpack", "accumulate"))]
     phase("build", t0, f"kernels {t_kern:.1f} s, native "
           f"{t_all - t_kern:.1f} s; threads/block "
           f"{lib.adacom_table_scan_threads()} (B1), "
           f"{lib.adacom_grouped_scan_threads()} (B2/B3), "
-          f"{lib.adacom_unpack_threads()} (decode); ptxas max registers "
+          f"{lib.adacom_unpack_threads()} (decode), "
+          f"{lib.adacom_accumulate_threads()} (accumulate); ptxas max registers "
           f"{max(regs) if regs else 'n/a'}, spill stores "
           f"{sum(e[2] for e in entries)} B over {len(regs)} kernels; "
           f"{'; '.join(grouped)}")
@@ -3625,6 +3732,7 @@ def main() -> int:
           f"read bandwidth {read_gbps:.1f} GB/s (roofline)")
     del words, part, segs, entries
     decode_ms, decode_plain_ms, decode_bound = time_decode(dev, read_gbps)
+    acc_ms, acc_plain_ms, acc_bound, acc_library_ms = time_accumulate(dev)
 
     # the sqlite oracle of phase 9, started once B1 is timed: it computes
     # while phases 5-8 run (about 210 s of command on the card's host)
@@ -3702,10 +3810,13 @@ def main() -> int:
         phase("generic codecs", t0, f"{n_cmp} comparisons (constant, rle, "
               f"delta, dictionary, alp at {list(CODEC_COUNTS)} rows: decode, "
               f"gather, pool of two), card == host bit for bit")
-        segcodec.DECODE_LAUNCHES = 0
+        segcodec.DECODE_LAUNCHES = agg.SCATTER_LAUNCHES = 0
         t4_path(HOT_RUNS).close()
         decode_launches = segcodec.DECODE_LAUNCHES
+        scatter_launches = agg.SCATTER_LAUNCHES
         check(decode_launches > 0, "phase 8 launched no decode kernel")
+        check(scatter_launches > 0,
+              "phase 8 launched no grouped-accumulate kernel")
         adaptive_mix(db1, con1, N_ROWS, HOT_RUNS)
         db1.close()
         del db1, con1, db, con
@@ -3803,6 +3914,11 @@ def main() -> int:
          "launches": decode_launches, "max_abs_err": 0,
          "ms": decode_ms, "plain_ms": decode_plain_ms,
          "bound_ms": decode_bound, "bound_by": "bytes", "library_ms": None},
+        {"name": "grouped_accumulate", "route": "cuda",
+         "source": "adacom_tpu_torch/csrc/grouped_accumulate.cu",
+         "replaces": None, "launches": scatter_launches, "max_abs_err": 0,
+         "ms": acc_ms, "plain_ms": acc_plain_ms, "bound_ms": acc_bound,
+         "bound_by": "bytes", "library_ms": acc_library_ms},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
